@@ -31,9 +31,9 @@ SITES: collections.Counter = collections.Counter()
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of each launcher (all return a cudaError_t as int).
 _SIGNATURES = {
-    "cc": {"cc_label_prop_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
+    "cc": {"cc_label_prop_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
     "knn": {
-        "knn_top5_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+        "knn_top5_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     },
 }
 _LIBS: dict = {}

@@ -37,8 +37,8 @@ class MapDiag(NamedTuple):
     n_sel: torch.Tensor
 
 
-def _nn5(q, target, t_mask):
-    idx, _ = top5_l2(q, target, t_mask, groups=1, site="mapping")
+def _nn5(q, target, t_mask, site):
+    idx, _ = top5_l2(q, target, t_mask, groups=1, site=site)
     return idx
 
 
@@ -168,8 +168,8 @@ def scan_to_map(
         qs = surf_xyz @ R.T + t
         refresh = it % m.search_every == 0
         if refresh:
-            ic = _nn5(qc, submap.corner_xyz, submap.corner_mask)
-            isf = _nn5(qs, submap.surf_xyz, submap.surf_mask)
+            ic = _nn5(qc, submap.corner_xyz, submap.corner_mask, "mapping_corner")
+            isf = _nn5(qs, submap.surf_xyz, submap.surf_mask, "mapping_surf")
             fit_c = _corner_fit(qc, corner_mask, ic.clamp(min=0).long(), submap, cfg)
             fit_s = _surf_fit(qs, surf_mask, isf.clamp(min=0).long(), submap, cfg)
         nc, dc, wc = _corner_residuals(qc, fit_c)

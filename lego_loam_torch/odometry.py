@@ -75,19 +75,19 @@ def _robust_weight(dist, ok, slope):
     return 1.0 - (slope / scale) * a
 
 
-def _nn5(q_xyz, target: FeatureCloud):
+def _nn5(q_xyz, target: FeatureCloud, site):
     """Exact 5-NN in the masked target (K2, groups=1); empty slots -> 0."""
-    idx, d2 = top5_l2(q_xyz, target.xyz, target.mask, groups=1, site="odometry")
+    idx, d2 = top5_l2(q_xyz, target.xyz, target.mask, groups=1, site=site)
     return idx.clamp(min=0).long(), d2
 
 
 def corner_search5(q_xyz, query: FeatureCloud, target: FeatureCloud, cfg):
-    idx, d5 = _nn5(q_xyz, target)
+    idx, d5 = _nn5(q_xyz, target, "odometry_corner")
     return idx, query.mask & (d5[:, 4] < cfg.odometry.corner_nn_max_dist ** 2)
 
 
 def surf_search5(q_xyz, query: FeatureCloud, target: FeatureCloud, cfg):
-    idx, d5 = _nn5(q_xyz, target)
+    idx, d5 = _nn5(q_xyz, target, "odometry_surf")
     return idx, query.mask & (d5[:, 4] < cfg.odometry.surf_nn_max_dist ** 2)
 
 

@@ -15,8 +15,12 @@ from .. import cuda
 
 BIG = 1e30
 K = 5
-_TILE = 1024  # targets staged per shared-memory tile (groups == 1)
+_TILE = 256  # targets per tile of K2's exact path
+_QB = 32  # queries per block of K2's exact path (8 warps of 4)
+_GQ = 128  # queries per block of K2's grouped path (one per thread)
+_MAX_SPLITS = 16
 _SM_COUNT: dict = {}
+_SCRATCH: dict = {}
 
 
 def pairwise_sqdist(q, t):
@@ -84,6 +88,37 @@ def _sm_count(dev):
     return _SM_COUNT[dev]
 
 
+def _scratch(dev, stream, n_counters, n_part):
+    """K2's scratch, kept per (device, stream) so that a call allocates
+    nothing but its outputs: the zeroed ticket counters, one per query block
+    (the block that merges a query block's splits resets its counter), and
+    room for the (S, Q, 5) split lists, d2 then index. Launches ordered on
+    one stream share them."""
+    key = (dev, stream)
+    counters, part = _SCRATCH.get(key, (None, None))
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(max(n_counters, 256), dtype=torch.int32, device=dev)
+    if part is None or part.numel() < 2 * n_part:
+        part = torch.empty(max(2 * n_part, 1 << 16), dtype=torch.int32, device=dev)
+    _SCRATCH[key] = counters, part
+    return counters, part
+
+
+def k2_split(Q, T, groups, tile, sm_count):
+    """(split_len, S): K2 cuts the T targets into S splits of split_len (a
+    multiple of the tile). The exact path aims at ~12 warps of 4 queries per
+    SM, with at least 2 tiles (512 targets) a split; the grouped path at ~2
+    blocks per SM. At most 16 splits."""
+    n_tiles = -(-T // tile)
+    if groups == 1:
+        S = min(max(1, n_tiles // 2), -(-12 * sm_count // -(-Q // 4)))
+    else:
+        S = min(n_tiles, -(-2 * sm_count // -(-Q // _GQ)))
+    S = max(1, min(S, _MAX_SPLITS))
+    split_len = -(-n_tiles // S) * tile
+    return split_len, -(-T // split_len)
+
+
 def top5_l2(query, target, t_mask, groups=1, t_tile=2048, site=""):
     """5 nearest unmasked targets per query, sorted by squared distance:
     (idx (Q,5) int32, -1 where fewer than 5; d2 (Q,5) f32, 1e30 there).
@@ -107,21 +142,20 @@ def top5_l2(query, target, t_mask, groups=1, t_tile=2048, site=""):
     if Q == 0 or T == 0:
         return (torch.full((Q, K), -1, dtype=torch.int32, device=dev),
                 torch.full((Q, K), BIG, dtype=torch.float32, device=dev))
+    if t_mask.data_ptr() % 4:  # K2 copies the mask 4 bytes at a time
+        t_mask = t_mask.clone()
     out_d = torch.empty((Q, K), dtype=torch.float32, device=dev)  # the kernel writes every slot
     out_i = torch.empty((Q, K), dtype=torch.int32, device=dev)
-    # Split the targets so that about two blocks per SM are in flight.
-    n_tiles = -(-T // tile)
-    q_blocks = -(-Q // 128)
-    S = max(1, min(n_tiles, -(-2 * _sm_count(dev) // q_blocks)))
-    split_len = -(-n_tiles // S) * tile
-    S = -(-T // split_len)
-    part_d = torch.empty((S, Q, K), dtype=torch.float32, device=dev) if S > 1 else out_d
-    part_i = torch.empty((S, Q, K), dtype=torch.int32, device=dev) if S > 1 else out_i
+    split_len, S = k2_split(Q, T, groups, tile, _sm_count(dev))
+    stream = cuda.stream_ptr(dev)
+    n_part = S * Q * K if S > 1 else 0
+    counters, part = _scratch(dev, stream, -(-Q // min(_QB, _GQ)), n_part)
+    part_d = part.data_ptr()
     lib = cuda.library("knn")
     err = lib.knn_top5_launch(
         query.data_ptr(), target.data_ptr(), t_mask.data_ptr(), Q, T, tile, groups,
-        split_len, S, part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
-        out_i.data_ptr(), cuda.stream_ptr(dev),
+        split_len, S, part_d, part_d + 4 * n_part, out_d.data_ptr(),
+        out_i.data_ptr(), counters.data_ptr(), stream,
     )
     cuda.check(err, "knn_top5 launch")
     cuda.count("knn_top5", site)

@@ -90,16 +90,34 @@ def label_prop_plain(left, right, up, down, candidate):
         lab = new
 
 
-# K1 keeps a scan's labels and packed masks in one CTA's shared memory.
+# K1 splits a scan's rows over the CTAs of one cluster (at most 8), each
+# holding its rows' labels (4 B), packed flags (1 B) and two ballot words
+# per 32 columns in shared memory (227 KB at most on the H100).
+_K1_CLUSTER = 8
 _K1_SMEM_LIMIT = 232448
+
+
+def k1_layout(H: int, W: int):
+    """(cluster size, rows per CTA, shared-memory bytes per CTA) of K1 at an
+    (H, W) scan: the largest power-of-two cluster up to 8 that divides H.
+    The only statement of the layout: the launcher takes rows and bytes
+    from here, and the kernel carves the bytes in this order."""
+    cs = _K1_CLUSTER
+    while H % cs:
+        cs //= 2
+    rows = H // cs
+    return cs, rows, rows * W * 5 + rows * (-(-W // 32)) * 8
 
 
 def label_prop(left, right, up, down, candidate):
     """Connected-component labels of (H, W) or (B, H, W) bool masks.
 
-    CUDA tensors launch kernel K1 (one CTA per scan); CPU tensors take the
-    plain twin. Replaces `lego_loam_tpu/ops/pallas_cc.py::pallas_label_prop`
-    without its 64-sweep cap."""
+    CUDA tensors launch kernel K1 (one thread-block cluster per scan); CPU
+    tensors take the plain twin. The masks are symmetric, as `_connectivity`
+    makes them: the kernel reads the horizontal links from `right` and the
+    vertical ones from `down`. Replaces
+    `lego_loam_tpu/ops/pallas_cc.py::pallas_label_prop` without its 64-sweep
+    cap."""
     if candidate.device.type != "cuda":
         return label_prop_plain(left, right, up, down, candidate)
     dev = candidate.device
@@ -107,18 +125,20 @@ def label_prop(left, right, up, down, candidate):
     if len(shape) not in (2, 3):
         raise ValueError(f"label_prop takes (H, W) or (B, H, W) masks, got {tuple(shape)}")
     H, W = shape[-2:]
-    if H * W * 5 > _K1_SMEM_LIMIT:
-        raise ValueError(f"{H}x{W} scan does not fit K1's shared-memory layout")
+    cs, rows, smem = k1_layout(H, W)
+    if smem > _K1_SMEM_LIMIT:
+        raise ValueError(f"{rows} rows of {W} columns per CTA do not fit K1's shared memory")
     masks = (left, right, up, down, candidate)
     for name, m in zip(("left", "right", "up", "down", "candidate"), masks):
         cuda.require(m, name, torch.bool, dev, shape)
-    out = torch.empty(shape, dtype=torch.int32, device=dev)
     B = shape[0] if len(shape) == 3 else 1
+    out = torch.empty(shape, dtype=torch.int32, device=dev)
     lib = cuda.library("cc")
     err = lib.cc_label_prop_launch(
-        *(m.data_ptr() for m in masks), out.data_ptr(), B, H, W, cuda.stream_ptr(dev)
+        right.data_ptr(), down.data_ptr(), candidate.data_ptr(), out.data_ptr(), B, H, W,
+        rows, smem, cuda.stream_ptr(dev),
     )
-    cuda.check(err, "cc_label_prop launch")
+    cuda.check(err, f"cc_label_prop launch (a cluster of {cs} CTAs of {smem} bytes)")
     cuda.count("cc_label_prop")
     return out
 

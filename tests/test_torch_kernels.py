@@ -12,10 +12,15 @@ import pytest
 import torch
 
 from lego_loam_torch import cuda
-from lego_loam_torch.ops.knn import top5_l2, top5_l2_plain
-from lego_loam_torch.ops.segmentation import _hook_step, label_prop, label_prop_plain
+from lego_loam_torch.ops.knn import k2_split, top5_l2, top5_l2_plain
+from lego_loam_torch.ops.segmentation import _hook_step, k1_layout, label_prop, label_prop_plain
 
 H, W = 16, 1800
+ROWS = [16, 32, 64]  # the sensor presets' scan heights
+# K2 at the main path's shapes (odometry corner/surf, mapping corner/surf)
+# and at its edge cases: Q not a multiple of 4 per lane or of 128 per
+# block, T below 5, T not a multiple of the 256-target tile.
+K2_SHAPES = [(1024, 1024), (2048, 4256), (1024, 8192), (4096, 32768), (301, 1000), (7, 3), (130, 257)]
 
 
 @pytest.fixture
@@ -25,7 +30,7 @@ def gpu():
     return torch.device("cuda", 0)
 
 
-def _cc_masks(batch, seed, device="cpu"):
+def _cc_masks(batch, seed, device="cpu", H=H):
     """Symmetric 4-neighbour masks of random blobs on full-width scans
     (columns wrap), as the range image's angle test makes them."""
     g = torch.Generator().manual_seed(seed)
@@ -40,7 +45,7 @@ def _cc_masks(batch, seed, device="cpu"):
     return [m.to(device).contiguous() for m in (left, right, up, down, cand)]
 
 
-def _comb(device="cpu"):
+def _comb(device="cpu", H=H):
     """One path through every pixel of a full-width scan: each column joined
     top to bottom, consecutive columns joined at alternate ends (no wrap).
     A min-sweep labeller advances about one column per sweep here, so a
@@ -110,30 +115,93 @@ def test_require_rejects(bad, error):
         cuda.require(bad(x), "x", torch.float32, x.device, (8, 3))
 
 
+@pytest.mark.parametrize("rows", ROWS)
+def test_twin_labels_the_comb_at_every_preset_height(rows):
+    assert (label_prop_plain(*_comb(H=rows)) == 0).all()
+
+
+def test_k1_layout_fits_every_preset():
+    """One cluster of 8 CTAs per scan at 16, 32 and 64 rows: 2, 4 and 8
+    rows a CTA, within the 227 KB of shared memory a block may use."""
+    for rows in ROWS:
+        cs, per_cta, smem = k1_layout(rows, W)
+        assert cs == 8 and per_cta == rows // 8 and smem <= 232448
+    assert k1_layout(64, W)[2] == 8 * W * 5 + 8 * 57 * 8  # 72 KB at 64 rows
+
+
+@pytest.mark.parametrize(
+    "Q, T, groups",
+    [(1024, 8192, 1), (300, 1000, 1), (7, 3, 1), (1024, 8192, 16), (4096, 32768, 1)],
+)
+def test_k2_split_covers_the_targets(Q, T, groups):
+    """Splits are whole tiles, cover every target, and number at most 16."""
+    tile = 2048 if groups > 1 else 256
+    split_len, S = k2_split(Q, T, groups, tile, 132)
+    assert split_len % tile == 0 and 1 <= S <= 16
+    assert (S - 1) * split_len < T <= S * split_len
+
+
 @pytest.mark.cuda
-def test_k1_matches_twin(gpu):
-    masks = _cc_masks(4, 2, gpu)
+@pytest.mark.parametrize("rows", ROWS)
+def test_k1_matches_twin(gpu, rows):
+    masks = _cc_masks(4, 2 + rows, gpu, H=rows)
     cuda.reset_counts()
     out = label_prop(*masks)
     assert cuda.LAUNCHES["cc_label_prop"] == 1
     ref = label_prop_plain(*masks)
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
-    assert (label_prop(*_comb(gpu)) == 0).all()
+    assert (label_prop(*_comb(gpu, H=rows)) == 0).all()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("Q, T, groups", [(1024, 8192, 1), (4096, 32768, 1), (1024, 8192, 16), (300, 1000, 1)])
-def test_k2_matches_twin(gpu, Q, T, groups):
-    q, t, m = _knn_inputs(Q, T, Q + T, gpu)
+def _check_k2(q, t, m, groups=1, exact_ties=False):
     cuda.reset_counts()
     idx, d2 = top5_l2(q, t, m, groups=groups, site="test")
     assert cuda.SITES["knn_top5@test"] == 1
     ridx, rd2 = top5_l2_plain(q, t, m, groups=groups)
     torch.cuda.synchronize()
     # the same float32 formula with the sums in another order
-    assert float((d2 - rd2).abs().max()) <= 1e-3
+    finite = rd2 < 1e29
+    assert torch.equal(d2 < 1e29, finite) and torch.equal(idx < 0, ridx < 0)
+    if finite.any():
+        assert float((d2 - rd2).abs()[finite].max()) <= 1e-3
+    if exact_ties:
+        assert torch.equal(idx, ridx)
     assert float((idx == ridx).float().mean()) >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q, T", K2_SHAPES)
+def test_k2_matches_twin(gpu, Q, T):
+    _check_k2(*_knn_inputs(Q, T, Q + T, gpu))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q, T", [(1024, 8192), (4096, 32768)])
+def test_k2_grouped_matches_twin(gpu, Q, T):
+    _check_k2(*_knn_inputs(Q, T, Q + T, gpu), groups=16)
+
+
+@pytest.mark.cuda
+def test_k2_all_masked(gpu):
+    q, t, _ = _knn_inputs(300, 1000, 5, gpu)
+    idx, d2 = top5_l2(q, t, torch.zeros(1000, dtype=torch.bool, device=gpu))
+    assert (idx == -1).all() and (d2 >= 1e29).all()
+
+
+@pytest.mark.cuda
+def test_k2_duplicate_targets_keep_the_earlier_index(gpu):
+    """Integer coordinates make every d2 exact, so exact duplicates and
+    equal distances are true ties: the earlier index must win, across
+    tiles, warps and splits alike."""
+    rs = np.random.RandomState(6)
+    base = rs.randint(-4, 5, (1500, 3))
+    t = np.concatenate([base, base[::-1], base])  # every point three times
+    q = rs.randint(-4, 5, (700, 3))
+    q[:50] = base[:50]  # queries on targets: d2 clamps at 0
+    f = dict(dtype=torch.float32, device=gpu)
+    m = torch.tensor(rs.rand(len(t)) > 0.1, device=gpu)
+    _check_k2(torch.tensor(q, **f), torch.tensor(t, **f), m, exact_ties=True)
 
 
 @pytest.mark.cuda
