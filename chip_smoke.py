@@ -26,11 +26,23 @@ Phases, each printing a progress line:
      in one chunk with loop closure off (the settings of
      tests/test_presets_e2e.py at the presets' own capacities): finite
      output, map-position error < 0.5 m at every scan, K1 launched;
-  7. torch.profiler over one warm chunk of 4 scans: device time and device
+  7. the loop-closing drive: bench.py's flagship configuration (`vlp16()`,
+     loop closure on, 20,480 keyframes, the rest at its defaults) over
+     448 swept scans of a campus lap course (laps of 340 frames, one lap
+     and 108 revisit frames) through `warmup_loop_closure` and
+     `run_chunked(chunk=32)`: at least one attempt, one accepted closure
+     and one applied graph solve, finite output, the corrected keyframe
+     ATE < 0.5 m and at most the uncorrected map ATE + 0.05 m, K1 and K2
+     (also at loop_icp) launched; then K2 on one real loop_icp call's
+     clouds against its twin and a float64 brute force, each tolerance
+     that pair's own float32 rounding, the attempt's and the solve's
+     times, and `reduced_solve` on the card against the same call on the
+     CPU;
+  8. torch.profiler over one warm chunk of 4 scans: device time and device
      kernels per scan, the device's busy share, the costliest kernels
      ("not measured" where the profiler cannot trace the card);
-  8. times with CUDA events after warm-up: K1 on a 16-scan chunk at each
-     height and K2 at the path's shapes, a call (host included) and the
+  9. times with CUDA events after warm-up: K1 on a 16-scan chunk at each
+     height and K2 at the path's shapes (loop_icp's included), a call (host included) and the
      device's time alone (the host's share hidden behind a sleep kernel),
      each beside its twin and its bound (and, for K2, torch.cdist +
      torch.topk, a yardstick the port never calls); the slice's scans/s and
@@ -43,7 +55,10 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -57,6 +72,10 @@ N_SLICE = 32
 CHUNK = 16
 N_PRESET = 8
 K2_SITES = ("odometry_corner", "odometry_surf", "mapping_corner", "mapping_surf")
+# The lap drive: bench.py's flagship configuration over a shorter campus
+# lap (340 frames, 34 s, longer than the 30 s loop_time_gap), cut after one
+# lap and 108 revisit frames: 14 chunks of 32.
+LAP_STRAIGHT, LAP_TURN, N_LAP, LAP_CHUNK = 70, 15, 448, 32
 
 
 def log(msg):
@@ -194,6 +213,91 @@ def knn_case(name, q, t, m, groups=1, t_tile=2048, rel=0.0):
     return idx, d2, err
 
 
+def knn_exact_case(name, q, t, m, groups=1, gate_d2=math.inf):
+    """K2 on one call's clouds against its twin and against float64, with
+    tolerances of each pair's own float32 rounding. Where many targets lie
+    closer together than float32 resolves d2 = |q|^2 + |t|^2 - 2 q.t (the
+    25 overlapping keyframes of loop_icp), the kernel and the twin may rank
+    them differently. One float32 d2 lies within about 2.5 eps (|q|^2 +
+    |t|^2) of the exact value (eps = 2^-23), so targets a and b may trade
+    places where their exact d2 differ by at most
+    tol(a, b) = 8 eps (|q|^2 + |t_a|^2 + |t_b|^2) + 1e-6 m^2. Checks:
+      - empty slots equal in K2, the twin and the float64 search;
+      - each row's indices distinct;
+      - K2's d2 within tol(idx, ridx) of the twin's, slot by slot, and
+        within tol(idx, idx) of the exact d2 of its own index;
+      - index match >= 0.999, a slot agreeing where the indices are equal
+        or the two targets' exact d2 are within tol(idx, ridx);
+      - in every slot k the exact d2 of K2's index at most the k-th
+        smallest exact d2 of a float64 brute force on the card, plus
+        tol(idx, b), b the farthest from the origin of the true first k
+        (so a skipped target, a neighbour one slot off or a repeated
+        index fails beyond a tie of that size).
+    Prints, over the queries whose nearest target lies within gate_d2 (the
+    ones the ICP weighs), the slot-0 tolerance beside the nearest-neighbour
+    d2, and the share of slots where a kernel returning the next neighbour
+    instead would exceed the tolerance (what the check can see)."""
+    from lego_loam_torch.ops.knn import top5_l2, top5_l2_plain
+
+    idx, d2 = top5_l2(q, t, m, groups=groups)
+    ridx, rd2 = top5_l2_plain(q, t, m, groups=groups)
+    q64, t64 = q.double(), t.double()
+    qq, tt = (q64 * q64).sum(1, keepdim=True), (t64 * t64).sum(1)
+    e5, j5 = [], []
+    for s in range(0, q.shape[0], 128):  # float64 brute force: (128, T) at a time
+        d = ((q64[s:s + 128, None, :] - t64[None]) ** 2).sum(-1).masked_fill(~m[None], math.inf)
+        v, j = torch.topk(d, 6, dim=1, largest=False)
+        e5.append(v)
+        j5.append(j)
+    e6, j6 = torch.cat(e5), torch.cat(j5)
+    e5, j5 = e6[:, :5], j6[:, :5]
+    torch.cuda.synchronize()
+
+    def exact(i):
+        return ((q64[:, None] - t64[i.clamp(min=0).long()]) ** 2).sum(-1)
+
+    def tol(a, b):
+        return 8 * 2.0 ** -23 * (qq + tt[a.clamp(min=0).long()] + b) + 1e-6
+
+    full = idx >= 0
+    if not (torch.equal(full, ridx >= 0) and torch.equal(full, e5 < math.inf)
+            and torch.equal(d2 >= 1e29, ~full) and torch.equal(rd2 >= 1e29, ~full)):
+        raise AssertionError(f"K2 {name}: empty slots differ between K2, its twin and float64")
+    srt = torch.where(full, idx, -1 - torch.arange(5, device=idx.device)).sort(1).values
+    if bool((srt[:, 1:] == srt[:, :-1]).any()):
+        raise AssertionError(f"K2 {name}: a row repeats an index")
+    ex, rex = exact(idx), exact(ridx)
+    t_pair = tol(idx, tt[ridx.clamp(min=0).long()])
+    t_self = tol(idx, tt[idx.clamp(min=0).long()])
+    t_top = tol(idx, tt[j5].cummax(1).values)
+    worst = {
+        "d2 vs twin": ((d2 - rd2).abs() / t_pair)[full],
+        "d2 vs exact": ((d2.double() - ex).abs() / t_self)[full],
+        "exact vs float64 top-5": ((ex - e5) / t_top)[full],
+    }
+    worst = {k: float(v.max()) if v.numel() else 0.0 for k, v in worst.items()}
+    same = idx == ridx
+    exact_match = float(same.float().mean())
+    match = float((same | ((ex - rex).abs() <= t_pair)).float().mean())
+    used = full[:, 0] & (e5[:, 0] < gate_d2)
+    seen = float(((e6[:, 1:] - e5) > t_top)[used[:, None] & full & (e6[:, 1:] < math.inf)].float().mean())
+    nn, t0 = e5[:, 0][used], t_pair[:, 0][used]
+    err = float((d2 - rd2).abs()[full].max()) if full.any() else 0.0
+    log(f"K2 {name}: Q={q.shape[0]} T={t.shape[0]} groups={groups}: index match {exact_match:.5f} "
+        f"({match:.5f} counting pairs within their float32 tolerance); worst share of the per-pair "
+        f"tolerance: " + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()))
+    if nn.numel():
+        pct = torch.tensor([0.5, 0.99], dtype=torch.float64, device=q.device)
+        nq, tq = torch.quantile(nn, pct).tolist(), torch.quantile(t0, pct).tolist()
+        log(f"K2 {name}: over the {nn.numel()} queries with a target within {gate_d2:.3g} m^2: "
+            f"nearest-neighbour d2 median {nq[0]:.3e}, 99th percentile {nq[1]:.3e} m^2; slot-0 tolerance "
+            f"median {tq[0]:.3e}, 99th percentile {tq[1]:.3e} m^2; a neighbour one slot off would exceed "
+            f"its tolerance in {seen:.4f} of their slots; max |d2 - twin d2| {err:.3g}")
+    if not (max(worst.values()) <= 1.0 and match >= 0.999):
+        raise AssertionError(f"K2 {name} disagrees with its twin or with float64")
+    return idx, d2, err
+
+
 def check_k2(dev):
     f = dict(device=dev, dtype=torch.float32)
     rs = np.random.RandomState(0)
@@ -240,12 +344,13 @@ def ate(est, gt):
     return float(np.sqrt(np.mean(np.sum((np.asarray(est) - gt) ** 2, axis=1))))
 
 
-def recording_k2_sites(run):
-    """Calls `run()` with K2's call sites in odometry and mapping recording
-    a copy of the last call's query, targets and mask at each site; returns
-    {site: (q, t, m, groups)}."""
-    from lego_loam_torch import mapping, odometry
+def recording_k2_sites(run, modules=("odometry", "mapping")):
+    """Calls `run()` with K2's call sites in the named modules of the port
+    (odometry, mapping, loopclosure) recording a copy of the last call's
+    query, targets and mask at each site; returns {site: (q, t, m, groups)}."""
+    import importlib
 
+    mods = [importlib.import_module(f"lego_loam_torch.{name}") for name in modules]
     seen = {}
 
     def recorder(fn):
@@ -254,12 +359,14 @@ def recording_k2_sites(run):
             return fn(q, t, m, groups=groups, t_tile=t_tile, site=site)
         return call
 
-    saved = odometry.top5_l2, mapping.top5_l2
-    odometry.top5_l2, mapping.top5_l2 = recorder(saved[0]), recorder(saved[1])
+    saved = [mod.top5_l2 for mod in mods]
+    for mod, fn in zip(mods, saved):
+        mod.top5_l2 = recorder(fn)
     try:
         run()
     finally:
-        odometry.top5_l2, mapping.top5_l2 = saved
+        for mod, fn in zip(mods, saved):
+            mod.top5_l2 = fn
     return seen
 
 
@@ -361,6 +468,120 @@ def drive_preset(name, cfg, gt, scans):
     return {"scans": len(scans), "seconds": dt, "max_err_m": float(err.max()), "launches": launches}
 
 
+
+def lap_course(cfg):
+    """bench.py's campus course with laps of LAP_STRAIGHT/LAP_TURN frames a
+    side, cut after N_LAP frames: true positions and swept renders (1 cm
+    noise, seed 100 + i), made before any timing."""
+    from lego_loam_torch.io.synthetic import campus_world, lap_trajectory, render_scan_swept
+
+    poses = lap_trajectory(2, straight_frames=LAP_STRAIGHT, turn_frames=LAP_TURN)[:N_LAP]
+    world = campus_world(poses)
+    scans = [render_scan_swept(poses[max(i - 1, 0)], poses[i], cfg, world, noise=0.01, seed=100 + i)
+             for i in range(N_LAP)]
+    return np.stack([t for _, t in poses]), scans
+
+
+def check_reduced_solve(pipe):
+    """reduced_solve on the card against the same call on the CPU, on the
+    drive's final store and loop buffer: `ok` equal, poses within 1 mm and
+    1e-4 in rotation entries, the cost before within 1e-4 relative."""
+    from lego_loam_torch.posegraph import Factors, reduced_solve
+
+    bs = pipe.bstate
+    args = (bs.kf_R, bs.kf_t, bs.kf_rel_R, bs.kf_rel_t, bs.n_kf)
+    gR, gt_, (gok, gc0, gc1, _) = reduced_solve(*args, pipe._loop_buf, pipe.cfg)
+    cR, ct, (cok, cc0, cc1, _) = reduced_solve(
+        *(a.cpu() for a in args), Factors(*(x.cpu() for x in pipe._loop_buf)), pipe.cfg
+    )
+    dR = float((gR.cpu() - cR).abs().max())
+    dt = float((gt_.cpu() - ct).abs().max())
+    c0, c0_cpu = float(gc0), float(cc0)
+    log(f"reduced_solve card vs CPU: ok {bool(gok)}/{bool(cok)}, cost {c0:.6g} -> {float(gc1):.6g} "
+        f"(CPU {c0_cpu:.6g} -> {float(cc1):.6g}), max |R diff| {dR:.2e}, max |t diff| {dt:.2e} m")
+    if not (bool(gok) == bool(cok) and dR <= 1e-4 and dt <= 1e-3
+            and abs(c0 - c0_cpu) <= 1e-4 * abs(c0_cpu) + 1e-6):
+        raise AssertionError("reduced_solve on the card disagrees with the CPU")
+    return {"ok": bool(gok), "max_rot_diff": dR, "max_trans_diff_m": dt}
+
+
+def run_lap(cfg, gt, scans):
+    """The flagship's loop-closing path: `vlp16()` with loop closure on at
+    20,480 keyframes, through `warmup_loop_closure` and
+    `run_chunked(chunk=32)`. Fails unless an attempt ran, a closure was
+    accepted and a graph solve applied, every output is finite, K1 and K2
+    (at the four old sites and at loop_icp) launched, and the corrected
+    keyframe ATE is < 0.5 m and at most the uncorrected map ATE + 0.05 m."""
+    from lego_loam_torch import cuda as kcuda
+    from lego_loam_torch.pipeline import LegoLoamPipeline
+
+    log(f"lap: {N_LAP} frames of campus laps of {4 * (LAP_STRAIGHT + LAP_TURN)} (straight {LAP_STRAIGHT}, turn "
+        f"{LAP_TURN}): one lap and {N_LAP - 4 * (LAP_STRAIGHT + LAP_TURN)} revisit frames, cut from bench.py's "
+        f"1,376 frames of 700-frame laps (straight 150, turn 25)")
+    gc.collect()  # the earlier phases' pipelines, so the peak is the lap's own
+    pipe = LegoLoamPipeline(cfg, seed=0)
+    pipe.warmup_loop_closure()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kcuda.reset_counts()
+    t0 = time.perf_counter()
+    out = pipe.run_chunked(scans, chunk=LAP_CHUNK)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, sites = dict(kcuda.LAUNCHES), dict(kcuda.SITES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    for k in ("map_positions", "odom_positions", "fused_positions"):
+        a = np.asarray(out[k])
+        if a.shape != (len(scans), 3) or not np.isfinite(a).all():
+            raise AssertionError(f"lap {k}: shape {a.shape} or non-finite values")
+    kR, kt, ktime = pipe.keyframe_trajectory()
+    if kt.shape != gt.shape or not (np.isfinite(kR).all() and np.isfinite(kt).all() and np.isfinite(ktime).all()):
+        raise AssertionError(f"lap keyframes: shape {kt.shape} or non-finite values")
+    attempts = sum(1 for d in pipe.loop_diag if "icp_fitness" in d)
+    closures = len(pipe.loop_factors)
+    solved = [d for d in pipe.loop_diag if "graph_accepted" in d]
+    ate_kf, ate_map, ate_odom = ate(kt, gt), ate(out["map_positions"], gt), ate(out["odom_positions"], gt)
+    log(f"lap: {len(scans)} scans in {dt:.3f} s = {len(scans) / dt:.3f} scans/s, peak device memory {peak:.3f} GiB")
+    log(f"lap: {attempts} attempts, {closures} closures {[(f.i, f.j, round(f.fitness, 4)) for f in pipe.loop_factors]}, "
+        f"graph solves {[(d['graph_accepted'], [round(c, 3) for c in d['graph_cost']]) for d in solved]}")
+    log(f"lap: corrected keyframe ATE {ate_kf:.4f} m, uncorrected map ATE {ate_map:.4f} m, "
+        f"odometry ATE {ate_odom:.4f} m (no alignment)")
+    log(f"lap: launches {launches}, by site {sites}")
+    if not (attempts >= 1 and closures >= 1 and any(d["graph_accepted"] for d in solved)):
+        raise AssertionError(f"lap: {attempts} attempts, {closures} closures, solves {solved}")
+    if not (ate_kf < 0.5 and ate_kf <= ate_map + 0.05):
+        raise AssertionError(f"lap: corrected keyframe ATE {ate_kf:.4f} m (map ATE {ate_map:.4f} m)")
+    if not (launches.get("cc_label_prop", 0) > 0
+            and all(sites.get(f"knn_top5@{k}", 0) > 0 for k in K2_SITES + ("loop_icp",))):
+        raise AssertionError(f"lap: a kernel of the path was not launched: {launches} {sites}")
+
+    # One more attempt at the last closure's keyframes on the final store:
+    # K2's clouds at loop_icp against its twin, then the attempt's time.
+    last = pipe.loop_factors[-1]
+    attempt = lambda: pipe._attempt(last.i, last.j, last.j + 1)  # noqa: E731 (no ring wrap: slot = id)
+    seen = recording_k2_sites(attempt, ("loopclosure",))
+    torch.cuda.synchronize()
+    q, t, m, g = seen["loop_icp"]
+    # 25 overlapping keyframes of the same surfaces: many neighbours lie at
+    # distances closer than float32 resolves at tens of metres
+    _, _, icp_err = knn_exact_case("path clouds at loop_icp", q, t, m, groups=g,
+                                   gate_d2=cfg.mapping.loop_icp_corr_dist ** 2)
+    attempt_ms = time_ms(attempt, reps=5, warmup=1)
+    solve_check = check_reduced_solve(pipe)
+    from lego_loam_torch.posegraph import reduced_solve
+
+    bs = pipe.bstate
+    solve_ms = time_ms(lambda: reduced_solve(bs.kf_R, bs.kf_t, bs.kf_rel_R, bs.kf_rel_t, bs.n_kf,
+                                             pipe._loop_buf, cfg), reps=5, warmup=1)
+    log(f"lap: one attempt {attempt_ms:.3f} ms, one reduced solve {solve_ms:.3f} ms (CUDA events, "
+        f"{bs.capacity} keyframes)")
+    return {"scans_per_s": len(scans) / dt, "scans": len(scans), "seconds": dt, "peak_gib": peak,
+            "attempts": attempts, "closures": closures, "graph_solves": [d["graph_accepted"] for d in solved],
+            "ate_kf_m": ate_kf, "ate_map_m": ate_map, "ate_odom_m": ate_odom, "launches": launches,
+            "launches_by_site": sites, "attempt_ms": attempt_ms, "solve_ms": solve_ms,
+            "reduced_solve_check": solve_check, "k2_loop_icp_max_abs_err": icp_err}, (q, t, m)
+
 def profile_slice(cfg, scans, wall_ms_per_scan):
     """Device time per scan under torch.profiler over one warm chunk, and
     its share of the unprofiled wall time per scan (the profiler slows the
@@ -436,6 +657,12 @@ def main() -> int:
     summary, launches = run_slice(cfg, scans, gt)
     summary.update(profile_slice(cfg, scans, 1e3 * summary["seconds"] / summary["scans"]))
     summary["presets"] = {name: drive_preset(name, *args) for name, args in presets.items()}
+    lcfg = dataclasses.replace(cfg, mapping=dataclasses.replace(cfg.mapping, enable_loop_closure=True,
+                                                                max_keyframes=20480))
+    t0 = time.perf_counter()
+    lap_gt, lap_scans = lap_course(lcfg)
+    log(f"lap: rendered {N_LAP} swept scans in {time.perf_counter() - t0:.1f} s")
+    summary["lap"], icp_clouds = run_lap(lcfg, lap_gt, lap_scans)
 
     # K1 times at the main path's shape: one launch per chunk of CHUNK scans
     k1_rows = []
@@ -454,6 +681,8 @@ def main() -> int:
     records = [{
         "name": "cc_label_prop", "route": "cuda", "source": "lego_loam_torch/csrc/cc.cu",
         "replaces": "lego_loam_tpu/ops/pallas_cc.py:99", "launches": launches.get("cc_label_prop", 0),
+        "launches_by_path": {"slice": launches.get("cc_label_prop", 0),
+                             "lap": summary["lap"]["launches"].get("cc_label_prop", 0)},
         "max_abs_err": k1_err, "ms": main_k1["ms"], "plain_ms": main_k1["plain_ms"],
         "bound_ms": main_k1["bound_ms"], "bound_by": "bytes", "library_ms": None,
         "device_ms": main_k1["device_ms"], "bound_share": main_k1["bound_share"],
@@ -461,6 +690,7 @@ def main() -> int:
         "heights": k1_rows,
     }]
     per_shape = []
+    shapes["loop icp"] = (*icp_clouds, summary["lap"]["k2_loop_icp_max_abs_err"])
     for name, (q, t, m, err) in shapes.items():
         Q, T = q.shape[0], t.shape[0]
         ms = time_ms(lambda: top5_l2(q, t, m))
@@ -475,18 +705,20 @@ def main() -> int:
         bound_by = "operations" if ops >= byts else "bytes"
         bound = max(ops, byts)
         site = "knn_top5@" + name.replace(" ", "_")
+        path = "lap" if name == "loop icp" else "slice"
         per_shape.append({"shape": name, "Q": Q, "T": T, "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
                           "library_ms": lib, "bound_ms": bound, "bound_by": bound_by, "bound_share": bound / dev_ms,
-                          "launches": summary["launches_by_site"].get(site, 0),
-                          "max_abs_err": err})
-        log(f"K2 {name} Q={Q} T={T}: {ms:.4f} ms a call, kernel alone {dev_ms:.4f} ms, "
+                          "launches": (summary["lap"] if path == "lap" else summary)["launches_by_site"].get(site, 0),
+                          "launches_in": path, "max_abs_err": err})
+        log(f"K2 {name} Q={Q} T={T} ({tm.shape[0]} unmasked): {ms:.4f} ms a call, kernel alone {dev_ms:.4f} ms, "
             f"twin {plain:.4f} ms, cdist+topk {lib:.4f} ms, bound {bound:.5f} ms ({bound_by}), "
             f"{100 * bound / dev_ms:.1f}% of bound, "
-            f"{per_shape[-1]['launches']} launches in the slice")
-    big = per_shape[-1]
+            f"{per_shape[-1]['launches']} launches in the {path} drive")
+    big = next(r for r in per_shape if r["shape"] == "mapping surf")
     records.append({
         "name": "knn_top5", "route": "cuda", "source": "lego_loam_torch/csrc/knn.cu",
         "replaces": "lego_loam_tpu/ops/pallas_knn.py:118", "launches": launches.get("knn_top5", 0),
+        "launches_by_path": {"slice": launches.get("knn_top5", 0), "lap": summary["lap"]["launches"].get("knn_top5", 0)},
         "max_abs_err": max([s["max_abs_err"] for s in per_shape] + [summary["k2_path_max_abs_err"]]),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],

@@ -1,5 +1,5 @@
 """Mapping back end: keyframe store + scan-to-map step (port of
-`lego_loam_tpu/backend.py`, loop closure aside).
+`lego_loam_tpu/backend.py`).
 
 The keyframe store is a fixed-capacity ring of device tensors in the
 reference's flat layout (a keyframe's cloud is one row [x0, y0, z0, x1,
@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from .config import LegoLoamConfig
@@ -50,6 +51,23 @@ class BackendState(_Base):
     @property
     def capacity(self) -> int:
         return self.kf_t.shape[0]
+
+    def kf_corner_view(self):
+        """(K, Nc, 3) view of the flat corner store."""
+        return self.kf_corner.view(self.capacity, -1, 3)
+
+    def kf_surf_view(self):
+        """(K, Ns, 3) view of the flat surf store."""
+        return self.kf_surf.view(self.capacity, -1, 3)
+
+    def ordered_slots(self):
+        """Host helper: resident slots oldest -> newest (numpy int array);
+        reads n_kf back."""
+        K = self.capacity
+        n = int(self.n_kf)
+        a = min(n, K)
+        start = (n - a) % K if K else 0
+        return (start + np.arange(a)) % K
 
 def init_backend_state(cfg: LegoLoamConfig, device="cuda") -> BackendState:
     K = cfg.mapping.max_keyframes

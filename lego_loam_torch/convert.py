@@ -17,6 +17,7 @@ import torch
 
 from . import config as _config
 from .backend import BackendState
+from .posegraph import Factors
 from .types import FeatureCloud, MapState, OdometryState
 
 _CONFIG_GROUPS = {
@@ -79,9 +80,17 @@ def map_state_from_reference(state, device="cuda") -> MapState:
     return _from(MapState, state, device)
 
 
+def factors_from_reference(factors, device="cuda") -> Factors:
+    """The port's `Factors` from a reference factor set (a NamedTuple with
+    numpy leaves, or any object with the same fields)."""
+    return Factors(**{k: _tensor(getattr(factors, k), device) for k in Factors._fields})
+
+
 def to_numpy(state) -> dict:
-    """A port state (any of the dataclasses above) as nested dicts of numpy
-    arrays keyed by field name."""
+    """A port state (any of the dataclasses above, or `Factors`) as nested
+    dicts of numpy arrays keyed by field name."""
+    if isinstance(state, Factors):
+        return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
     out = {}
     for f in dataclasses.fields(state):
         v = getattr(state, f.name)

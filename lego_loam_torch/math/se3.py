@@ -105,7 +105,8 @@ def exp_se3(xi):
 def log_se3(R, t):
     """(R, t) -> twist (...,6) [w, v]."""
     w = log_so3(R)
-    Jinv = torch.linalg.inv(left_jacobian_so3(w))
+    # inv_ex: no read-back of the info code, so no device synchronisation
+    Jinv = torch.linalg.inv_ex(left_jacobian_so3(w)).inverse
     v = (Jinv @ t[..., None])[..., 0]
     return torch.cat([w, v], dim=-1)
 

@@ -1,21 +1,30 @@
-"""Host orchestrator: per-scan odometry and mapping over chunks of scans
-(port of the chunk runner of `lego_loam_tpu/pipeline.py`).
+"""Host orchestrator: per-scan odometry and mapping over chunks of scans,
+with loop closure (port of `lego_loam_tpu/pipeline.py`).
 
 `process_chunk` runs C scans: first the per-scan work that depends on no
 earlier scan (range-image reconstruction, ground removal; the connected
-components of all C scans in one K1 launch, one CTA per scan), then, frame
-by frame, segmentation and features, the two-step scan-to-scan solve, the
-scan-to-map solve and the keyframe append, and the fused pose. The
+components of all C scans in one K1 launch, one cluster per scan), then,
+frame by frame, segmentation and features, the two-step scan-to-scan solve,
+the scan-to-map solve and the keyframe append, and the fused pose. The
 reference runs the same step inside one `lax.scan`; here it is a Python
 loop whose early exits read small tensors back.
 
-Loop closure, the IMU and wheel-odometry priors, the sharded solves and
-`save_artifacts` are not ported yet: a config that enables them is refused.
+Loop closure keeps the reference's asynchronous schedule (see
+`_try_loop_closure`): a candidate probe after each checked chunk, read two
+checks later; an attempt program (coarse align + ICP through K2), read one
+check later; an anchor-segment pose-graph solve at every
+`loop_solve_every_accepts`-th accepted closure and at the end of the
+stream, applied on the device by its own cost gate.
+
+The IMU and wheel-odometry priors, the sharded solves, global-map
+publishing and `save_artifacts` are not ported yet: a config that enables
+them is refused.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -24,17 +33,17 @@ from .backend import BackendState, backend_step_ds, downsample_current_scan, ini
 from .config import LegoLoamConfig
 from .frontend import deskew_outliers, frontend_solve, init_odometry_state, segment_features
 from .fusion import fuse_pose
+from .loopclosure import attempt_loop_closure, compute_loopinfo
 from .mapping import MapDiag
 from .math import se3
 from .ops.ground import apply_ground, ransac_scores
 from .ops.projection import grid_from_range_image, host_pack_range_image, project_point_cloud
 from .ops.segmentation import converged_labels
+from .posegraph import Factors, anchor_stride, reduced_solve
 from .types import OdometryState, ScanGrid
 
 
 def _unsupported(cfg: LegoLoamConfig):
-    if cfg.mapping.enable_loop_closure:
-        return "loop closure"
     if cfg.pipeline.use_imu_undistortion:
         return "IMU undistortion"
     if cfg.odometry.odom_prior_mode != "off":
@@ -44,8 +53,18 @@ def _unsupported(cfg: LegoLoamConfig):
     return None
 
 
+@dataclasses.dataclass
+class LoopFactor:
+    i: int
+    j: int
+    R: np.ndarray
+    t: np.ndarray
+    fitness: float
+
+
 class LegoLoamPipeline:
-    """End-to-end odometry + mapping on one device (default: the GPU).
+    """End-to-end odometry + mapping (+ loop closure) on one device
+    (default: the GPU).
 
     ground_scores: optional callable frame_idx -> (ransac_iterations, H*W)
     tensor of uniform draws for the ground NEAR pass. By default they come
@@ -56,6 +75,8 @@ class LegoLoamPipeline:
         missing = _unsupported(cfg)
         if missing:
             raise NotImplementedError(f"{missing} is not ported to lego_loam_torch yet")
+        if cfg.mapping.enable_loop_closure:
+            anchor_stride(cfg)  # refuses a stride that leaves too many anchors, before any allocation
         self.cfg = cfg
         self.seed = seed
         self.device = torch.device(device)
@@ -69,6 +90,25 @@ class LegoLoamPipeline:
         self.trajectory = {"positions": [], "rpys": [], "times": []}
         self.odom_positions = self.fused_positions = None
         self._finalized = False
+        self._stager = None  # one worker thread staging the next chunk (run_chunked)
+
+        # Loop closure. loop_factors is the host mirror of the accepted
+        # factors; _loop_buf the fixed-capacity device buffer (ABSOLUTE
+        # keyframe ids) that the pose-graph solve reads, written in place.
+        self.loop_factors: list[LoopFactor] = []
+        self._loop_buf = self._empty_loop_buf()
+        self._loop_write = 0
+        # Candidate probes waiting to be read, the attempt and the solve in
+        # flight (their outputs and the check they were dispatched at).
+        self._linfo_q: list = []
+        self._attempt_pending = None
+        self._solve_pending = None
+        self._check_seq = 0
+        self._solved_at = 0  # len(loop_factors) at the last graph solve
+        self.loop_diag: list[dict] = []  # one record per evaluated probe
+        self._loop_cooldown_until = 0
+        self._last_loop_check = -(10 ** 9)
+        self._last_attempt = None  # (cand_slot, cur_slot, n_kf) of the last attempt
 
     def _draw_scores(self, frame: int):
         g = torch.Generator(device=self.device)
@@ -107,8 +147,14 @@ class LegoLoamPipeline:
             buf = np.clip(np.rint(buf * (1.0 / q)), -32767, 32767).astype(np.int16)
         return {"pts": buf, "mask": m}
 
-    def stage_chunk(self, prep: dict, timestamps=None) -> dict:
-        """Move a `_prep_many` feed to the device (range codes as int32)."""
+    def stage_chunk(self, pts, masks=None, timestamps=None, imu=None, odom=None) -> dict:
+        """Move one chunk's inputs to the device without processing them.
+
+        pts: a `_prep_many` feed, or a (C, max_points, 3) array with its
+        (C, max_points) masks. Range codes go up as int32; timestamps, when
+        given, as float32. imu and odom are accepted for the reference's
+        signature and unused (configs that need them are refused)."""
+        prep = pts if isinstance(pts, dict) else {"pts": pts, "mask": masks}
         xs = {}
         for k, v in prep.items():
             v = np.asarray(v)
@@ -118,6 +164,12 @@ class LegoLoamPipeline:
         if timestamps is not None:
             xs["ts"] = torch.as_tensor(np.asarray(timestamps, np.float32), device=self.device)
         return xs
+
+    def stage_chunk_async(self, pts, masks=None, timestamps=None, imu=None, odom=None):
+        """`stage_chunk` in a background thread; returns a Future of the
+        staged feed. Call it for chunk c+1 right after dispatching chunk c,
+        so the host-side transfer overlaps the frame loop."""
+        return self._stager_submit(self.stage_chunk, pts, masks, timestamps, imu, odom)
 
     # -- chunk runner ---------------------------------------------------------
 
@@ -130,13 +182,13 @@ class LegoLoamPipeline:
             pts = pts.to(torch.float32) * cfg.pipeline.feed_quant
         return project_point_cloud(pts, xs["mask"][c], cfg)
 
-    def process_chunk(self, pts, timestamps=None):
-        """Process C scans: pts is a `_prep_many` feed, a staged feed from
-        `stage_chunk`, or a list of raw (N, 3) clouds."""
+    def _frames(self, xs, kf_ts, log_ts):
+        """Run the staged scans of `xs` as frames frame_idx, frame_idx+1, ...
+        (frame_idx itself is left to the caller). kf_ts: (C,) device tensor
+        of the times stored with keyframes; log_ts: the times logged per
+        mapped frame (floats, or the same device tensor). Returns the last
+        frame's poses."""
         cfg = self.cfg
-        if not isinstance(pts, dict):
-            pts = self._prep_many(pts)
-        xs = pts if isinstance(next(iter(pts.values())), torch.Tensor) else self.stage_chunk(pts, timestamps)
         C = int(xs["rimg" if "rimg" in xs else "pts"].shape[0])
         f0 = self.frame_idx
         self._finalized = False
@@ -152,11 +204,6 @@ class LegoLoamPipeline:
 
         div = cfg.mapping.mapping_frequency_divider
         for c in range(C):
-            idx = f0 + c
-            if "ts" in xs:
-                t_scan = xs["ts"][c]
-            else:
-                t_scan = torch.tensor(idx, dtype=torch.float32) * cfg.laser.scan_period
             _grid, seg, feats = segment_features(grids[c], cfg, raw[c])
             self.fstate, out = frontend_solve(feats, self.fstate, cfg)
             map_feats = feats.replace(
@@ -168,25 +215,119 @@ class LegoLoamPipeline:
             bs = self.bstate
             # Fused pose from the latest *available* map pose (one frame
             # stale, as the reference's asynchronous fusion node).
-            _, tf = fuse_pose(bs.R_map, bs.t_map, bs.R_odom, bs.t_odom, out["R_world"], out["t_world"])
+            Rf, tf = fuse_pose(bs.R_map, bs.t_map, bs.R_odom, bs.t_odom, out["R_world"], out["t_world"])
             self._log["odom_t"].append(out["t_world"])
             self._log["fused_t"].append(tf)
-            if idx % div == 0:
+            if (f0 + c) % div == 0:
                 self.bstate, (R_map, t_map), diag = backend_step_ds(
-                    bs, *ds, out["R_world"], out["t_world"], t_scan, cfg
+                    bs, *ds, out["R_world"], out["t_world"], kf_ts[c], cfg
                 )
                 self._log["map_R"].append(R_map)
                 self._log["map_t"].append(t_map)
-                self._log["map_time"].append(torch.as_tensor(t_scan, dtype=torch.float32))
+                self._log["map_time"].append(log_ts[c] if isinstance(log_ts, torch.Tensor) else float(log_ts[c]))
                 self._diags.append(diag)
+        return {
+            "R_odom": out["R_world"], "t_odom": out["t_world"],
+            "R_map": self.bstate.R_map, "t_map": self.bstate.t_map,
+            "R_fused": Rf, "t_fused": tf,
+        }
+
+    def process_chunk(self, pts, masks=None, timestamps=None, imu=None, odom=None):
+        """Process C scans: pts is a staged feed from `stage_chunk`, a
+        `_prep_many` feed, a (C, max_points, 3) array with its masks, or a
+        list of raw (N, 3) clouds. Loop closure is checked once per chunk.
+
+        Without timestamps, frame i's keyframe time is float32(i) times
+        scan_period in float32, as the reference's chunk runner derives it
+        on the device, and its logged map time the float64 product rounded
+        to float32, as that runner logs it on the host; both are computed
+        here on the host and the keyframe times staged with the chunk."""
+        cfg = self.cfg
+        if isinstance(pts, dict) and isinstance(next(iter(pts.values())), torch.Tensor):
+            xs = pts
+        elif isinstance(pts, dict) or masks is not None:
+            xs = self.stage_chunk(pts, masks, timestamps)
+        else:
+            xs = self.stage_chunk(self._prep_many(pts), timestamps=timestamps)
+        C = int(xs["rimg" if "rimg" in xs else "pts"].shape[0])
+        if "ts" in xs:
+            kf_ts = log_ts = xs["ts"]
+        else:
+            frames = np.arange(self.frame_idx, self.frame_idx + C)
+            kf_ts = torch.from_numpy(frames.astype(np.float32) * np.float32(cfg.laser.scan_period)).to(self.device)
+            log_ts = (frames * cfg.laser.scan_period).astype(np.float32)
+        self._frames(xs, kf_ts, log_ts)
         self.frame_idx += C
+
+        if cfg.mapping.enable_loop_closure and (
+            self.frame_idx - self._last_loop_check >= cfg.mapping.loop_every_n_frames
+        ):
+            self._last_loop_check = self.frame_idx
+            self._linfo_q.append(self._loopinfo_probe())
+            self._try_loop_closure()
+
+    def process_scan(self, points, timestamp=None, imu_samples=None, odom_pose=None):
+        """Process one raw scan ((N, 3), NaN rows = misses) as one frame.
+
+        Its time is `timestamp`, else frame_idx * scan_period in float64,
+        stored with a keyframe as float32 and logged as given, as the
+        reference's process_scan does. Loop closure is checked after a
+        mapped frame. imu_samples and odom_pose are accepted for the
+        reference's signature and unused (configs that need them are
+        refused). Returns the frame's odometry, map and fused poses."""
+        cfg = self.cfg
+        t_scan = timestamp if timestamp is not None else self.frame_idx * cfg.laser.scan_period
+        xs = self.stage_chunk(self._prep_many([points]), timestamps=[t_scan])
+        out = self._frames(xs, xs["ts"], [t_scan])
+        if (
+            cfg.mapping.enable_loop_closure
+            and self.frame_idx % cfg.mapping.mapping_frequency_divider == 0
+            and self.frame_idx - self._last_loop_check >= cfg.mapping.loop_every_n_frames
+        ):
+            self._last_loop_check = self.frame_idx
+            self._linfo_q.append(self._loopinfo_probe())
+            self._try_loop_closure()
+        self.frame_idx += 1
+        return out
 
     def run(self, scans, timestamps=None, chunk: int = 16):
         """Process a sequence of raw scans in chunks; returns the
         trajectories (map, odometry, fused positions) as numpy arrays."""
         for s in range(0, len(scans), chunk):
             ts = None if timestamps is None else timestamps[s : s + chunk]
-            self.process_chunk(self._prep_many(scans[s : s + chunk]), ts)
+            self.process_chunk(self._prep_many(scans[s : s + chunk]), timestamps=ts)
+        return self._result()
+
+    def run_chunked(self, scans, chunk: int = 16, timestamps=None):
+        """Whole chunks through `process_chunk`, the next one packed and
+        staged in a worker thread meanwhile; the ragged tail through
+        `process_scan`. Finalizes (draining loop closure) and returns the
+        trajectories as `run` does."""
+        T = len(scans)
+
+        def prep_and_stage(s0):
+            ts = None if timestamps is None else np.asarray(timestamps[s0 : s0 + chunk], np.float32)
+            return self.stage_chunk(self._prep_many(scans[s0 : s0 + chunk]), timestamps=ts)
+
+        s = 0
+        if T >= chunk:
+            fut = self._stager_submit(prep_and_stage, 0)
+            while s + chunk <= T:
+                xs = fut.result()
+                if s + 2 * chunk <= T:
+                    fut = self._stager_submit(prep_and_stage, s + chunk)
+                self.process_chunk(xs)
+                s += chunk
+        for k in range(s, T):
+            self.process_scan(scans[k], None if timestamps is None else timestamps[k])
+        return self._result()
+
+    def _stager_submit(self, fn, *args):
+        if self._stager is None:
+            self._stager = ThreadPoolExecutor(max_workers=1, thread_name_prefix="lego-stage")
+        return self._stager.submit(fn, *args)
+
+    def _result(self):
         self.finalize()
         return {
             "map_positions": np.asarray(self.trajectory["positions"]),
@@ -197,9 +338,11 @@ class LegoLoamPipeline:
     # -- materialization ----------------------------------------------------
 
     def finalize(self):
-        """Pull the per-frame logs to the host in one pass."""
+        """Drain loop closure, then pull the per-frame logs to the host in
+        one pass."""
         if self._finalized:
             return
+        self._drain_loop_closure()
 
         def host(entries, shape):
             if not entries:
@@ -211,10 +354,13 @@ class LegoLoamPipeline:
         if self._log["map_t"]:
             mR = torch.stack(self._log["map_R"])
             rpy = torch.stack(se3.matrix_to_euler_zyx(mR), dim=-1).cpu().numpy()
+            # map times are floats or staged device values: read the latter at once
+            on_dev = [t for t in self._log["map_time"] if isinstance(t, torch.Tensor)]
+            read = iter(torch.stack(on_dev).cpu().tolist() if on_dev else ())
             self.trajectory = {
                 "positions": list(host(self._log["map_t"], (0, 3))),
                 "rpys": list(rpy),
-                "times": [float(t) for t in host(self._log["map_time"], (0,))],
+                "times": [next(read) if isinstance(t, torch.Tensor) else t for t in self._log["map_time"]],
             }
             cols = {
                 f: torch.stack([getattr(d, f).to(self.device).reshape(()) for d in self._diags]).cpu().numpy()
@@ -236,3 +382,220 @@ class LegoLoamPipeline:
                 for k in range(len(self._diags))
             ]
         self._finalized = True
+
+    def keyframe_trajectory(self):
+        """Corrected keyframe poses (R (A,3,3), t (A,3), times (A,)) as
+        numpy, oldest -> newest: the keyframe poses after loop-closure
+        corrections, where the per-frame logs keep each pose as it was
+        when its frame ran."""
+        slots = self.bstate.ordered_slots()
+        bs = self.bstate
+        return bs.kf_R.cpu().numpy()[slots], bs.kf_t.cpu().numpy()[slots], bs.kf_time.cpu().numpy()[slots]
+
+    # -- loop closure -------------------------------------------------------
+
+    def _empty_loop_buf(self) -> Factors:
+        L = self.cfg.mapping.max_loop_factors
+        dev = self.device
+        return Factors(
+            i=torch.zeros(L, dtype=torch.int32, device=dev),
+            j=torch.zeros(L, dtype=torch.int32, device=dev),
+            R=torch.eye(3, device=dev).repeat(L, 1, 1),
+            t=torch.zeros(L, 3, device=dev),
+            info=torch.ones(L, 6, device=dev),
+            mask=torch.zeros(L, dtype=torch.bool, device=dev),
+        )
+
+    def _loop_info(self, fitness: float) -> float:
+        m = self.cfg.mapping
+        return 1.0 / max(fitness * m.loop_noise_scale, m.loop_var_floor)
+
+    def _append_loop(self, k, i, j, R, t, info, valid):
+        """Write row k of the device loop-factor buffer in place."""
+        buf = self._loop_buf
+        buf.i[k], buf.j[k] = i, j
+        buf.R[k].copy_(R)
+        buf.t[k].copy_(t)
+        buf.info[k] = info
+        buf.mask[k] = valid
+
+    def _sync_loop_buf(self):
+        """Rebuild the device loop-factor buffer from the host mirror."""
+        live = self.loop_factors[-self.cfg.mapping.max_loop_factors:]
+        self._loop_buf = self._empty_loop_buf()
+        for k, f in enumerate(live):
+            self._append_loop(k, f.i, f.j, torch.as_tensor(f.R), torch.as_tensor(f.t), self._loop_info(f.fitness), True)
+        self._loop_write = len(live)
+
+    def _loopinfo_probe(self):
+        bs = self.bstate
+        return compute_loopinfo(bs.kf_t, bs.kf_time, bs.n_kf, bs.t_map, self.cfg)
+
+    def _attempt(self, cand_slot: int, cur_slot: int, n_kf: int):
+        bs = self.bstate
+        return attempt_loop_closure(
+            bs.kf_R, bs.kf_t, bs.kf_corner_view(), bs.kf_corner_mask,
+            bs.kf_surf_view(), bs.kf_surf_mask, cand_slot, cur_slot, n_kf, self.cfg,
+        )
+
+    def warmup_loop_closure(self):
+        """Run each loop-closure program once before the timed region: the
+        candidate probe, an attempt, a masked-out buffer write and a graph
+        solve (on a store whose chain is consistent the cost gate rejects
+        it and the poses stay). No-op when loop closure is off."""
+        if not self.cfg.mapping.enable_loop_closure:
+            return
+        self._loopinfo_probe()
+        self._attempt(0, 0, 1)
+        self._append_loop(0, 0, 0, torch.eye(3, device=self.device), torch.zeros(3, device=self.device), 1.0, False)
+        self._dispatch_solve(None)
+        self._pickup_solve()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _try_loop_closure(self, draining: bool = False):
+        """One loop-closure check, the reference's asynchronous schedule
+        (a check is one call of this; `draining` handles everything at once):
+
+        1. The candidate probe queued at the check before last is read (a
+           4-float read of a result long finished); at most the two newest
+           probes stay queued.
+        2. A candidate within `history_keyframe_search_radius`, outside the
+           attempt cooldown and with no attempt in flight, dispatches an
+           attempt; its flags are read at the next check.
+        3. An accepted attempt appends the loop factor and, at every
+           `loop_solve_every_accepts`-th accept, dispatches the reduced
+           pose-graph solve, whose cost gate applies it on the device; its
+           diagnostic is read at the next check."""
+        m = self.cfg.mapping
+        self._check_seq += 1
+        self._pickup_solve(draining)
+        self._pickup_attempt(draining)
+
+        if len(self._linfo_q) < (1 if draining else 2):
+            return
+        pend = self._linfo_q.pop(0)
+        del self._linfo_q[:-2]  # never let the backlog grow
+        cand_slot, cand_dist, n_kf, cur_slot = pend.tolist()
+        n_kf = int(n_kf)
+        if n_kf < 3:
+            return
+        has_cand = bool(np.isfinite(cand_dist))
+        self.loop_diag.append({
+            "n_kf": n_kf,
+            "cand": int(cand_slot) if has_cand else -1,
+            "dist": float(cand_dist) if has_cand else float("inf"),
+        })
+        if not has_cand or cand_dist >= m.history_keyframe_search_radius:
+            return
+        # Cooldowns budget attempts during the stream; the drain has nothing
+        # left to budget.
+        if not draining and self.frame_idx < self._loop_cooldown_until:
+            return
+        if self._attempt_pending is not None:
+            return
+        key = (int(cand_slot), int(cur_slot), n_kf)
+        if draining and key == self._last_attempt:
+            return  # the drain's final probe of an unchanged store: tried already
+        self._last_attempt = key
+        self._loop_cooldown_until = self.frame_idx + m.loop_attempt_cooldown
+        out = self._attempt(*key)
+        self._attempt_pending = (*out, self.loop_diag[-1], self._check_seq)
+        if draining:
+            self._pickup_attempt(True)
+            self._pickup_solve(True)
+
+    def _pickup_attempt(self, draining: bool = False):
+        """Read a finished attempt; on acceptance append the factor (host
+        mirror and device buffer) and, when due, dispatch the solve."""
+        if self._attempt_pending is None:
+            return
+        flags_d, R_d, t_d, diag, seq = self._attempt_pending
+        if not draining and self._check_seq < seq + 1:
+            return
+        self._attempt_pending = None
+        flags = flags_d.tolist()
+        m = self.cfg.mapping
+        diag.update(
+            icp_fitness=float(flags[3]),
+            coarse_score=float(flags[4]),
+            coarse_frac=round(float(flags[5]), 3),
+            icp_iters=int(flags[6]),
+            icp_inlier_frac=float(flags[7]),
+        )
+        if flags[0] < 0.5:
+            return
+        diag["accepted"] = True
+        fitness = float(flags[3])
+        i, j = int(flags[1]), int(flags[2])
+        self.loop_factors.append(LoopFactor(i=i, j=j, R=R_d.cpu().numpy(), t=t_d.cpu().numpy(), fitness=fitness))
+        k = self._loop_write % m.max_loop_factors
+        self._loop_write += 1
+        self._append_loop(k, i, j, R_d, t_d, self._loop_info(fitness), True)
+        self._loop_cooldown_until = self.frame_idx + m.loop_accept_cooldown
+        if len(self.loop_factors) % max(m.loop_solve_every_accepts, 1) and not draining:
+            return  # factor accumulated; solve at the Nth accept / drain
+        self._dispatch_solve(diag)
+
+    def _dispatch_solve(self, diag_ref):
+        """Queue the reduced anchor-segment solve. Its cost gate selects on
+        the device: where it holds, the store's poses are rewritten in
+        place, the map pose becomes the newest keyframe's corrected pose and
+        the submap cache is invalidated (so the next frame rebuilds it from
+        the corrected poses); nothing is read back here."""
+        bs = self.bstate
+        self._solved_at = len(self.loop_factors)
+        newR, newt, (ok, c0, c1, moved) = reduced_solve(
+            bs.kf_R, bs.kf_t, bs.kf_rel_R, bs.kf_rel_t, bs.n_kf, self._loop_buf, self.cfg
+        )
+        newest = torch.where(bs.n_kf > 0, (bs.n_kf - 1) % bs.capacity, 0).long().reshape(1)
+        bs.kf_R.copy_(newR)  # the input rows where the gate refused
+        bs.kf_t.copy_(newt)
+        self.bstate = bs.replace(
+            R_map=torch.where(ok, newR.index_select(0, newest)[0], bs.R_map),
+            t_map=torch.where(ok, newt.index_select(0, newest)[0], bs.t_map),
+            submap_center=torch.where(ok, torch.full_like(bs.submap_center, 1e9), bs.submap_center),
+            submap_n_kf=torch.where(ok, torch.full_like(bs.submap_n_kf, -1), bs.submap_n_kf),
+        )
+        diag = torch.stack([ok.to(c0.dtype), c0, c1, moved])
+        self._solve_pending = (diag, diag_ref, self._check_seq)
+
+    def _pickup_solve(self, draining: bool = True):
+        if self._solve_pending is None:
+            return
+        diag_d, diag_ref, seq = self._solve_pending
+        if not draining and self._check_seq < seq + 1:
+            return
+        self._solve_pending = None
+        ok, c0, c1, moved = diag_d.tolist()
+        if diag_ref is not None:
+            diag_ref["graph_cost"] = [c0, c1]
+            diag_ref["graph_max_move"] = moved
+            diag_ref["graph_accepted"] = bool(ok > 0.5)
+
+    def _drain_loop_closure(self):
+        """End of stream: probe the last pose, evaluate every queued probe
+        (the final one included) with attempts and solves completed at once,
+        then solve for any factors accumulated since the last solve.
+
+        The reference's drain evaluates only the oldest queued probe, so its
+        final probe is never read; this one empties the queue. Where no
+        keyframe came after the last check, the final probe repeats the
+        queued one: an attempt at the same keyframes is not made twice (it
+        would add the same loop factor again)."""
+        if not self.cfg.mapping.enable_loop_closure or self.frame_idx == 0:
+            return
+        self._linfo_q.append(self._loopinfo_probe())
+        while self._linfo_q:
+            self._try_loop_closure(draining=True)
+        if len(self.loop_factors) > self._solved_at:
+            self._dispatch_solve(self.loop_diag[-1] if self.loop_diag else None)
+        self._pickup_solve()
+
+    def _optimize_graph(self):
+        """Whole-graph correction on demand (tests, a reloaded factor
+        list): rebuild the device buffer from the host mirror, solve, and
+        read the diagnostic."""
+        self._sync_loop_buf()
+        self._dispatch_solve(self.loop_diag[-1] if self.loop_diag else None)
+        self._pickup_solve()
