@@ -19,9 +19,12 @@ Phases, each printing a progress line:
      recorded in the slice's warm-up run (these clouds are ordered along
      the scan, unlike the random ones);
   5. the slice: `vlp16()` at full width over 32 swept scans of a straight
-     drive through `LegoLoamPipeline.run`; map ATE < 0.1 m, every output
-     finite, both kernels launched on the path and K2 at all four call
-     sites (odometry and mapping, corner and surf clouds);
+     drive through `LegoLoamPipeline.run_chunked`; map ATE < 0.1 m, every
+     output finite, both kernels launched on the path and K2 at all four
+     call sites (odometry and mapping, corner and surf clouds); then the
+     per-scan entry point, `run` over its first 4 scans through
+     `process_scan` (float32 points projected on the card), with the same
+     checks;
   6. short drives of `vlp32c()` and `hdl64e()` at full width, 8 scans each
      in one chunk with loop closure off (the settings of
      tests/test_presets_e2e.py at the presets' own capacities): finite
@@ -38,6 +41,14 @@ Phases, each printing a progress line:
      that pair's own float32 rounding, the attempt's and the solve's
      times, and `reduced_solve` on the card against the same call on the
      CPU;
+  7b. the IMU lap: the same 448 scans with the lap's configuration plus
+     `use_imu_undistortion=True` and `odom_prior_mode="init"`, 200 Hz IMU
+     windows and a wheel-odometry stream made from the course's poses,
+     driven as tools/campus_run.py drives it (`warmup_loop_closure`, then
+     `stage_chunk_async(..., imu=, odom=)` and `process_chunk` per chunk of
+     32, then `finalize`): the lap's checks, and an odometry ATE below the
+     plain lap's; then `integrate_imu` + `undistort_to` of one turning
+     frame's window and segmented cloud on the card against the CPU;
   8. torch.profiler over one warm chunk of 4 scans: device time and device
      kernels per scan, the device's busy share, the costliest kernels
      ("not measured" where the profiler cannot trace the card);
@@ -71,6 +82,9 @@ FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 N_SLICE = 32
 CHUNK = 16
 N_PRESET = 8
+N_SCAN_RUN = 4  # scans of the per-scan `run`
+# the paths whose launches the kernels line reports, each counted alone
+PATHS = ("slice", "scan_run", "lap", "imu_lap")
 K2_SITES = ("odometry_corner", "odometry_surf", "mapping_corner", "mapping_surf")
 # The lap drive: bench.py's flagship configuration over a shorter campus
 # lap (340 frames, 34 s, longer than the 30 s loop_time_gap), cut after one
@@ -386,14 +400,14 @@ def run_slice(cfg, scans, gt):
 
     # warm-up on other scans: loads the kernels, fills the allocator, and
     # records the clouds of one real call at each of K2's call sites
-    seen = recording_k2_sites(lambda: LegoLoamPipeline(cfg, seed=1).run(scans[:4], chunk=4))
+    seen = recording_k2_sites(lambda: LegoLoamPipeline(cfg, seed=1).run_chunked(scans[:4], chunk=4))
     torch.cuda.synchronize()
     path_err = check_k2_on_path(seen)
     torch.cuda.reset_peak_memory_stats()
     pipe = LegoLoamPipeline(cfg, seed=0)
     kcuda.reset_counts()
     t0 = time.perf_counter()
-    out = pipe.run(scans, chunk=CHUNK)
+    out = pipe.run_chunked(scans, chunk=CHUNK)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(kcuda.LAUNCHES)
@@ -418,6 +432,35 @@ def run_slice(cfg, scans, gt):
     return {"scans_per_s": len(scans) / dt, "scans": len(scans), "seconds": dt, "peak_gib": peak,
             "ate_map_m": ate_map, "ate_odom_m": ate_odom, "launches_by_site": sites,
             "k2_path_max_abs_err": path_err}, launches
+
+
+def run_per_scan(cfg, scans, gt):
+    """The per-scan entry point: `run` sends each scan through
+    `process_scan` (float32 points, projected on the card). Finite output,
+    map ATE < 0.1 m, K1 and K2 at its four sites launched."""
+    from lego_loam_torch import cuda as kcuda
+    from lego_loam_torch.pipeline import LegoLoamPipeline
+
+    pipe = LegoLoamPipeline(cfg, seed=0)
+    kcuda.reset_counts()
+    t0 = time.perf_counter()
+    out = pipe.run(scans[:N_SCAN_RUN])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, sites = dict(kcuda.LAUNCHES), dict(kcuda.SITES)
+    for k in ("map_positions", "odom_positions", "fused_positions"):
+        a = np.asarray(out[k])
+        if a.shape != (N_SCAN_RUN, 3) or not np.isfinite(a).all():
+            raise AssertionError(f"per-scan run {k}: shape {a.shape} or non-finite values")
+    ate_map = ate(out["map_positions"], gt[:N_SCAN_RUN])
+    log(f"per-scan run: {N_SCAN_RUN} scans through process_scan in {dt:.3f} s (first use of the points feed "
+        f"included), map ATE {ate_map:.4f} m; launches {launches}, by site {sites}")
+    if not ate_map < 0.1:
+        raise AssertionError(f"per-scan run: map ATE {ate_map:.4f} m >= 0.1 m")
+    if not (launches.get("cc_label_prop", 0) > 0 and all(sites.get(f"knn_top5@{k}", 0) > 0 for k in K2_SITES)):
+        raise AssertionError(f"per-scan run: a kernel of the path was not launched: {launches} {sites}")
+    return {"scans": N_SCAN_RUN, "seconds": dt, "ate_map_m": ate_map, "launches": launches,
+            "launches_by_site": sites}
 
 
 def preset_scans(cfg, n):
@@ -447,7 +490,7 @@ def drive_preset(name, cfg, gt, scans):
     kcuda.reset_counts()
     t0 = time.perf_counter()
     pipe = LegoLoamPipeline(cfg, seed=0)
-    out = pipe.run(scans, chunk=len(scans))
+    out = pipe.run_chunked(scans, chunk=len(scans))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(kcuda.LAUNCHES)
@@ -471,15 +514,15 @@ def drive_preset(name, cfg, gt, scans):
 
 def lap_course(cfg):
     """bench.py's campus course with laps of LAP_STRAIGHT/LAP_TURN frames a
-    side, cut after N_LAP frames: true positions and swept renders (1 cm
-    noise, seed 100 + i), made before any timing."""
+    side, cut after N_LAP frames: true poses and positions and swept renders
+    (1 cm noise, seed 100 + i), made before any timing."""
     from lego_loam_torch.io.synthetic import campus_world, lap_trajectory, render_scan_swept
 
     poses = lap_trajectory(2, straight_frames=LAP_STRAIGHT, turn_frames=LAP_TURN)[:N_LAP]
     world = campus_world(poses)
     scans = [render_scan_swept(poses[max(i - 1, 0)], poses[i], cfg, world, noise=0.01, seed=100 + i)
              for i in range(N_LAP)]
-    return np.stack([t for _, t in poses]), scans
+    return poses, np.stack([t for _, t in poses]), scans
 
 
 def check_reduced_solve(pipe):
@@ -505,27 +548,26 @@ def check_reduced_solve(pipe):
     return {"ok": bool(gok), "max_rot_diff": dR, "max_trans_diff_m": dt}
 
 
-def run_lap(cfg, gt, scans):
-    """The flagship's loop-closing path: `vlp16()` with loop closure on at
-    20,480 keyframes, through `warmup_loop_closure` and
-    `run_chunked(chunk=32)`. Fails unless an attempt ran, a closure was
-    accepted and a graph solve applied, every output is finite, K1 and K2
-    (at the four old sites and at loop_icp) launched, and the corrected
-    keyframe ATE is < 0.5 m and at most the uncorrected map ATE + 0.05 m."""
+def drive_lap(cfg, gt, scans, name, drive):
+    """A loop-closing drive of the lap course: a fresh pipeline,
+    `warmup_loop_closure`, then `drive(pipe)` timed with the launch counts
+    set to 0 just before it and read just after. Fails unless an attempt
+    ran, a closure was accepted and a graph solve applied, every output is
+    finite, K1 and K2 (at the four per-scan sites and at loop_icp)
+    launched, and the corrected keyframe ATE is < 0.5 m and at most the
+    uncorrected map ATE + 0.05 m. Returns (pipeline, summary)."""
     from lego_loam_torch import cuda as kcuda
     from lego_loam_torch.pipeline import LegoLoamPipeline
+    from lego_loam_torch.utils.metrics import rpe_rmse
 
-    log(f"lap: {N_LAP} frames of campus laps of {4 * (LAP_STRAIGHT + LAP_TURN)} (straight {LAP_STRAIGHT}, turn "
-        f"{LAP_TURN}): one lap and {N_LAP - 4 * (LAP_STRAIGHT + LAP_TURN)} revisit frames, cut from bench.py's "
-        f"1,376 frames of 700-frame laps (straight 150, turn 25)")
-    gc.collect()  # the earlier phases' pipelines, so the peak is the lap's own
+    gc.collect()  # the earlier phases' pipelines, so the peak is this drive's own
     pipe = LegoLoamPipeline(cfg, seed=0)
     pipe.warmup_loop_closure()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kcuda.reset_counts()
     t0 = time.perf_counter()
-    out = pipe.run_chunked(scans, chunk=LAP_CHUNK)
+    out = drive(pipe)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches, sites = dict(kcuda.LAUNCHES), dict(kcuda.SITES)
@@ -534,27 +576,48 @@ def run_lap(cfg, gt, scans):
     for k in ("map_positions", "odom_positions", "fused_positions"):
         a = np.asarray(out[k])
         if a.shape != (len(scans), 3) or not np.isfinite(a).all():
-            raise AssertionError(f"lap {k}: shape {a.shape} or non-finite values")
+            raise AssertionError(f"{name} {k}: shape {a.shape} or non-finite values")
     kR, kt, ktime = pipe.keyframe_trajectory()
     if kt.shape != gt.shape or not (np.isfinite(kR).all() and np.isfinite(kt).all() and np.isfinite(ktime).all()):
-        raise AssertionError(f"lap keyframes: shape {kt.shape} or non-finite values")
+        raise AssertionError(f"{name} keyframes: shape {kt.shape} or non-finite values")
     attempts = sum(1 for d in pipe.loop_diag if "icp_fitness" in d)
     closures = len(pipe.loop_factors)
     solved = [d for d in pipe.loop_diag if "graph_accepted" in d]
     ate_kf, ate_map, ate_odom = ate(kt, gt), ate(out["map_positions"], gt), ate(out["odom_positions"], gt)
-    log(f"lap: {len(scans)} scans in {dt:.3f} s = {len(scans) / dt:.3f} scans/s, peak device memory {peak:.3f} GiB")
-    log(f"lap: {attempts} attempts, {closures} closures {[(f.i, f.j, round(f.fitness, 4)) for f in pipe.loop_factors]}, "
+    # relative error over 100 m of frames (0.12 m a frame), or the whole drive
+    delta = min(int(100.0 / 0.12), len(scans) - 1)
+    rpe_map, rpe_odom = rpe_rmse(out["map_positions"], gt, delta), rpe_rmse(out["odom_positions"], gt, delta)
+    log(f"{name}: {len(scans)} scans in {dt:.3f} s = {len(scans) / dt:.3f} scans/s, peak device memory {peak:.3f} GiB")
+    log(f"{name}: {attempts} attempts, {closures} closures "
+        f"{[(f.i, f.j, round(f.fitness, 4)) for f in pipe.loop_factors]}, "
         f"graph solves {[(d['graph_accepted'], [round(c, 3) for c in d['graph_cost']]) for d in solved]}")
-    log(f"lap: corrected keyframe ATE {ate_kf:.4f} m, uncorrected map ATE {ate_map:.4f} m, "
-        f"odometry ATE {ate_odom:.4f} m (no alignment)")
-    log(f"lap: launches {launches}, by site {sites}")
+    log(f"{name}: corrected keyframe ATE {ate_kf:.4f} m, uncorrected map ATE {ate_map:.4f} m, "
+        f"odometry ATE {ate_odom:.4f} m (no alignment); RPE over {delta} frames: map {rpe_map:.4f} m, "
+        f"odometry {rpe_odom:.4f} m")
+    log(f"{name}: launches {launches}, by site {sites}")
     if not (attempts >= 1 and closures >= 1 and any(d["graph_accepted"] for d in solved)):
-        raise AssertionError(f"lap: {attempts} attempts, {closures} closures, solves {solved}")
+        raise AssertionError(f"{name}: {attempts} attempts, {closures} closures, solves {solved}")
     if not (ate_kf < 0.5 and ate_kf <= ate_map + 0.05):
-        raise AssertionError(f"lap: corrected keyframe ATE {ate_kf:.4f} m (map ATE {ate_map:.4f} m)")
+        raise AssertionError(f"{name}: corrected keyframe ATE {ate_kf:.4f} m (map ATE {ate_map:.4f} m)")
     if not (launches.get("cc_label_prop", 0) > 0
             and all(sites.get(f"knn_top5@{k}", 0) > 0 for k in K2_SITES + ("loop_icp",))):
-        raise AssertionError(f"lap: a kernel of the path was not launched: {launches} {sites}")
+        raise AssertionError(f"{name}: a kernel of the path was not launched: {launches} {sites}")
+    return pipe, {"scans_per_s": len(scans) / dt, "scans": len(scans), "seconds": dt, "peak_gib": peak,
+                  "attempts": attempts, "closures": closures, "graph_solves": [d["graph_accepted"] for d in solved],
+                  "ate_kf_m": ate_kf, "ate_map_m": ate_map, "ate_odom_m": ate_odom, "rpe_frames": delta,
+                  "rpe_map_m": rpe_map, "rpe_odom_m": rpe_odom, "launches": launches, "launches_by_site": sites}
+
+
+def run_lap(cfg, gt, scans):
+    """The flagship's loop-closing path: `vlp16()` with loop closure on at
+    20,480 keyframes, through `warmup_loop_closure` and
+    `run_chunked(chunk=32)`, with `drive_lap`'s checks; then K2 on one
+    real loop_icp call's clouds, the attempt's and the solve's times, and
+    `reduced_solve` on the card against the CPU."""
+    log(f"lap: {N_LAP} frames of campus laps of {4 * (LAP_STRAIGHT + LAP_TURN)} (straight {LAP_STRAIGHT}, turn "
+        f"{LAP_TURN}): one lap and {N_LAP - 4 * (LAP_STRAIGHT + LAP_TURN)} revisit frames, cut from bench.py's "
+        f"1,376 frames of 700-frame laps (straight 150, turn 25)")
+    pipe, summary = drive_lap(cfg, gt, scans, "lap", lambda p: p.run_chunked(scans, chunk=LAP_CHUNK))
 
     # One more attempt at the last closure's keyframes on the final store:
     # K2's clouds at loop_icp against its twin, then the attempt's time.
@@ -576,11 +639,75 @@ def run_lap(cfg, gt, scans):
                                              pipe._loop_buf, cfg), reps=5, warmup=1)
     log(f"lap: one attempt {attempt_ms:.3f} ms, one reduced solve {solve_ms:.3f} ms (CUDA events, "
         f"{bs.capacity} keyframes)")
-    return {"scans_per_s": len(scans) / dt, "scans": len(scans), "seconds": dt, "peak_gib": peak,
-            "attempts": attempts, "closures": closures, "graph_solves": [d["graph_accepted"] for d in solved],
-            "ate_kf_m": ate_kf, "ate_map_m": ate_map, "ate_odom_m": ate_odom, "launches": launches,
-            "launches_by_site": sites, "attempt_ms": attempt_ms, "solve_ms": solve_ms,
-            "reduced_solve_check": solve_check, "k2_loop_icp_max_abs_err": icp_err}, (q, t, m)
+    summary.update(attempt_ms=attempt_ms, solve_ms=solve_ms, reduced_solve_check=solve_check,
+                   k2_loop_icp_max_abs_err=icp_err)
+    return summary, (q, t, m)
+
+
+def run_imu_lap(cfg, poses, gt, scans, plain_odom_ate):
+    """The IMU + wheel-odometry configuration over the lap's scans, driven as
+    tools/campus_run.py drives it: per chunk of 32, `stage_chunk_async` with
+    the chunk's IMU windows and wheel poses (the next chunk staged while
+    this one runs), `process_chunk`, then `finalize`. `drive_lap`'s checks,
+    and the odometry ATE must beat the plain lap's on the same scans (the
+    prior and the attitude anchor act). Then one turning frame's window
+    and segmented cloud through `integrate_imu` + `undistort_to` on the card
+    and on the CPU: within 1e-4 m."""
+    from lego_loam_torch.imu import integrate_imu, undistort_to
+    from lego_loam_torch.io.synthetic import synth_imu_windows, synth_wheel_odom
+    from lego_loam_torch.ops.ground import apply_ground
+    from lego_loam_torch.ops.segmentation import segment_cloud
+
+    imu = synth_imu_windows(poses, cfg, rate=200.0, noise=0.002, seed=0)
+    odom = synth_wheel_odom(poses, cfg, seed=0, scale_err=1.005, yaw_noise=5e-4)
+    log(f"IMU lap: use_imu_undistortion, odom_prior_mode {cfg.odometry.odom_prior_mode!r}; "
+        f"{int(imu['mask'][0].sum())} IMU samples a scan (200 Hz, window {cfg.pipeline.imu_window}), "
+        f"wheel odometry with scale error 1.005 and yaw noise 5e-4 rad a step")
+
+    def window(s0, s1):
+        return {k: v[s0:s1] for k, v in imu.items()}
+
+    def drive(pipe):
+        def stage(s0):
+            return pipe.stage_chunk_async(pipe._prep_many(scans[s0:s0 + LAP_CHUNK]), imu=window(s0, s0 + LAP_CHUNK),
+                                          odom=(odom[0][s0:s0 + LAP_CHUNK], odom[1][s0:s0 + LAP_CHUNK]))
+
+        fut = stage(0)
+        for s0 in range(0, len(scans), LAP_CHUNK):
+            xs = fut.result()
+            if s0 + LAP_CHUNK < len(scans):
+                fut = stage(s0 + LAP_CHUNK)
+            pipe.process_chunk(xs)
+        pipe.finalize()
+        return {"map_positions": np.asarray(pipe.trajectory["positions"]),
+                "odom_positions": pipe.odom_positions, "fused_positions": pipe.fused_positions}
+
+    pipe, summary = drive_lap(cfg, gt, scans, "IMU lap", drive)
+    log(f"IMU lap: odometry ATE {summary['ate_odom_m']:.4f} m against the plain lap's {plain_odom_ate:.4f} m")
+    if not summary["ate_odom_m"] < plain_odom_ate:
+        raise AssertionError(f"IMU lap: odometry ATE {summary['ate_odom_m']:.4f} m is not below the plain lap's "
+                             f"{plain_odom_ate:.4f} m")
+
+    # one frame in the middle of the first turn (6 deg of yaw a scan)
+    k = LAP_STRAIGHT + LAP_TURN // 2
+    xs = pipe.stage_chunk(pipe._prep_many([scans[k]]), imu=window(k, k + 1))
+    grid = apply_ground(pipe._grid(xs, 0), cfg, pipe._ground_scores(k))
+    _, seg = segment_cloud(grid, cfg)
+    im = {n: v[0] for n, v in xs["imu"].items()}
+    track = integrate_imu(im["t"], im["rpy"], im["acc"], mask=im["mask"])
+    card = undistort_to(seg.xyz, seg.rel_time, track, cfg.laser.scan_period)
+    cpu_track = integrate_imu(im["t"].cpu(), im["rpy"].cpu(), im["acc"].cpu(), mask=im["mask"].cpu())
+    cpu = undistort_to(seg.xyz.cpu(), seg.rel_time.cpu(), cpu_track, cfg.laser.scan_period)
+    valid = seg.valid.cpu()
+    err = float((card.cpu() - cpu).abs()[valid].max())
+    moved = float((cpu - seg.xyz.cpu()).norm(dim=-1)[valid].max())
+    log(f"IMU lap: integrate_imu + undistort_to of frame {k} ({int(valid.sum())} segmented points, moved up to "
+        f"{moved:.3f} m) on the card against the CPU: max |diff| {err:.3g} m")
+    if not (err <= 1e-4 and moved > 0.05):
+        raise AssertionError(f"IMU lap: undistortion on the card differs from the CPU by {err:.3g} m "
+                             f"(points moved {moved:.3f} m)")
+    summary.update(undistort_card_vs_cpu_m=err, undistort_max_move_m=moved)
+    return summary
 
 def profile_slice(cfg, scans, wall_ms_per_scan):
     """Device time per scan under torch.profiler over one warm chunk, and
@@ -655,14 +782,20 @@ def main() -> int:
         presets[name] = (pcfg, pgt, pscans)
     shapes = check_k2(dev)
     summary, launches = run_slice(cfg, scans, gt)
+    summary["scan_run"] = run_per_scan(cfg, scans, gt)
     summary.update(profile_slice(cfg, scans, 1e3 * summary["seconds"] / summary["scans"]))
     summary["presets"] = {name: drive_preset(name, *args) for name, args in presets.items()}
     lcfg = dataclasses.replace(cfg, mapping=dataclasses.replace(cfg.mapping, enable_loop_closure=True,
                                                                 max_keyframes=20480))
     t0 = time.perf_counter()
-    lap_gt, lap_scans = lap_course(lcfg)
+    lap_poses, lap_gt, lap_scans = lap_course(lcfg)
     log(f"lap: rendered {N_LAP} swept scans in {time.perf_counter() - t0:.1f} s")
     summary["lap"], icp_clouds = run_lap(lcfg, lap_gt, lap_scans)
+    icfg = dataclasses.replace(
+        lcfg, pipeline=dataclasses.replace(lcfg.pipeline, use_imu_undistortion=True),
+        odometry=dataclasses.replace(lcfg.odometry, odom_prior_mode="init"),
+    )
+    summary["imu_lap"] = run_imu_lap(icfg, lap_poses, lap_gt, lap_scans, summary["lap"]["ate_odom_m"])
 
     # K1 times at the main path's shape: one launch per chunk of CHUNK scans
     k1_rows = []
@@ -681,8 +814,8 @@ def main() -> int:
     records = [{
         "name": "cc_label_prop", "route": "cuda", "source": "lego_loam_torch/csrc/cc.cu",
         "replaces": "lego_loam_tpu/ops/pallas_cc.py:99", "launches": launches.get("cc_label_prop", 0),
-        "launches_by_path": {"slice": launches.get("cc_label_prop", 0),
-                             "lap": summary["lap"]["launches"].get("cc_label_prop", 0)},
+        "launches_by_path": {path: summary[path]["launches"].get("cc_label_prop", 0) if path != "slice"
+                             else launches.get("cc_label_prop", 0) for path in PATHS},
         "max_abs_err": k1_err, "ms": main_k1["ms"], "plain_ms": main_k1["plain_ms"],
         "bound_ms": main_k1["bound_ms"], "bound_by": "bytes", "library_ms": None,
         "device_ms": main_k1["device_ms"], "bound_share": main_k1["bound_share"],
@@ -709,7 +842,8 @@ def main() -> int:
         per_shape.append({"shape": name, "Q": Q, "T": T, "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
                           "library_ms": lib, "bound_ms": bound, "bound_by": bound_by, "bound_share": bound / dev_ms,
                           "launches": (summary["lap"] if path == "lap" else summary)["launches_by_site"].get(site, 0),
-                          "launches_in": path, "max_abs_err": err})
+                          "launches_in": path, "launches_imu_lap": summary["imu_lap"]["launches_by_site"].get(site, 0),
+                          "max_abs_err": err})
         log(f"K2 {name} Q={Q} T={T} ({tm.shape[0]} unmasked): {ms:.4f} ms a call, kernel alone {dev_ms:.4f} ms, "
             f"twin {plain:.4f} ms, cdist+topk {lib:.4f} ms, bound {bound:.5f} ms ({bound_by}), "
             f"{100 * bound / dev_ms:.1f}% of bound, "
@@ -718,7 +852,8 @@ def main() -> int:
     records.append({
         "name": "knn_top5", "route": "cuda", "source": "lego_loam_torch/csrc/knn.cu",
         "replaces": "lego_loam_tpu/ops/pallas_knn.py:118", "launches": launches.get("knn_top5", 0),
-        "launches_by_path": {"slice": launches.get("knn_top5", 0), "lap": summary["lap"]["launches"].get("knn_top5", 0)},
+        "launches_by_path": {path: summary[path]["launches"].get("knn_top5", 0) if path != "slice"
+                             else launches.get("knn_top5", 0) for path in PATHS},
         "max_abs_err": max([s["max_abs_err"] for s in per_shape] + [summary["k2_path_max_abs_err"]]),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],

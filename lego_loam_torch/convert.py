@@ -17,6 +17,7 @@ import torch
 
 from . import config as _config
 from .backend import BackendState
+from .imu import ImuTrack
 from .posegraph import Factors
 from .types import FeatureCloud, MapState, OdometryState
 
@@ -78,6 +79,12 @@ def backend_state_from_reference(state, device="cuda") -> BackendState:
 
 def map_state_from_reference(state, device="cuda") -> MapState:
     return _from(MapState, state, device)
+
+
+def imu_track_from_reference(track, device="cuda") -> ImuTrack:
+    """The port's `ImuTrack` from a reference track (a NamedTuple with
+    numpy leaves)."""
+    return _from(ImuTrack, track, device)
 
 
 def factors_from_reference(factors, device="cuda") -> Factors:

@@ -2,7 +2,12 @@
 odometry (port of `lego_loam_tpu/frontend.py`).
 
 `frontend_prepass` has no dependence on earlier scans; `frontend_solve` is
-the sequential half that threads the OdometryState.
+the sequential half that threads the OdometryState. With
+`use_imu_undistortion`, the segmented cloud is undistorted to scan end from
+the scan's IMU track before feature extraction, and the IMU attitude pulls
+the solved world attitude toward it; `odom_prior_mode` takes a wheel-odometry
+motion prior as the solve's warm start ("init") or in place of the solve
+("override").
 """
 
 from __future__ import annotations
@@ -10,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from .config import LegoLoamConfig
+from .imu import ImuTrack, undistort_to
 from .math import se3
 from .odometry import to_scan_end, two_step_odometry
 from .ops.features import extract_features, shadow_points
@@ -75,30 +81,68 @@ def _rigid(feats: ScanFeatures) -> ScanFeatures:
     )
 
 
-def frontend_prepass(grid, cfg: LegoLoamConfig, scores=None):
+def frontend_prepass(grid, cfg: LegoLoamConfig, scores=None, imu_track: ImuTrack | None = None):
     """Ground removal, segmentation and feature extraction of one projected
     scan; scores: the NEAR pass's RANSAC draw. Returns (grid, seg, feats)."""
-    return segment_features(apply_ground(grid, cfg, scores), cfg)
+    return segment_features(apply_ground(grid, cfg, scores), cfg, imu_track=imu_track)
 
 
-def segment_features(grid, cfg: LegoLoamConfig, raw_labels=None):
+def segment_features(grid, cfg: LegoLoamConfig, raw_labels=None, imu_track: ImuTrack | None = None):
     """Segmentation and feature extraction of a grounded grid. raw_labels:
     its connected components if already computed (the pipeline labels all
-    scans of a chunk in one K1 launch)."""
+    scans of a chunk in one K1 launch). imu_track: the scan's IMU track;
+    with `use_imu_undistortion` the segmented points are moved to the
+    scan-end frame in one hop and their rel_time set to 1, so the motion
+    warp does not compensate them twice (the outlier cloud keeps its times
+    and is deskewed by the solved motion, as in the reference)."""
     grid, seg = segment_cloud(grid, cfg, raw_labels)
+    if imu_track is not None and cfg.pipeline.use_imu_undistortion:
+        xyz = undistort_to(seg.xyz, seg.rel_time, imu_track, cfg.laser.scan_period, ref_time=1.0)
+        seg = seg.replace(
+            xyz=torch.where(seg.valid[..., None], xyz, seg.xyz),
+            rel_time=torch.where(seg.valid, torch.ones_like(seg.rel_time), seg.rel_time),
+        )
     feats = extract_features(seg, cfg)
     if cfg.pipeline.rigid_scans:
         feats = _rigid(feats)
     return grid, seg, feats
 
 
-def frontend_solve(feats: ScanFeatures, state: OdometryState, cfg: LegoLoamConfig):
+def imu_attitude(track: ImuTrack):
+    """(R, valid) of a track's last valid sample, the IMU attitude at scan
+    end; the slot is selected on the device (no host read)."""
+    last = torch.clamp(track.mask.sum() - 1, min=0).reshape(1)
+    return track.R.index_select(0, last)[0], track.mask.any()
+
+
+def frontend_solve(feats: ScanFeatures, state: OdometryState, cfg: LegoLoamConfig, odom_prior=None, imu_att=None):
     """Two-step scan-to-scan GN, world-pose integration and the scan-end
-    target swap. Returns (new_state, outputs)."""
-    if bool(state.initialized):
-        M_R, M_t = two_step_odometry(
-            feats, state.last_corner, state.last_surf, state.R_prev_cur, state.t_prev_cur, cfg
-        )
+    target swap. Returns (new_state, outputs).
+
+    odom_prior: optional (M_R, M_t) wheel-odometry motion: "init" mode seeds
+    the GN with it, "override" mode replaces the solved motion with it (the
+    first frame's identity too). imu_att: optional ((3, 3) R, () valid), the
+    IMU attitude at scan end: once initialized, M is corrected so the world
+    attitude moves `imu_attitude_weight` of the way toward it (where valid)."""
+    mode = cfg.odometry.odom_prior_mode
+    initialized = bool(state.initialized)
+    if initialized:
+        M_R0, M_t0 = odom_prior if odom_prior is not None and mode == "init" else (state.R_prev_cur, state.t_prev_cur)
+        M_R, M_t = two_step_odometry(feats, state.last_corner, state.last_surf, M_R0, M_t0, cfg)
+    else:
+        dev = state.t_world.device
+        M_R, M_t = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+    if odom_prior is not None and mode == "override":
+        M_R, M_t = odom_prior
+
+    w_att = cfg.odometry.imu_attitude_weight
+    if imu_att is not None and w_att > 0 and initialized:
+        # the reference weighs the first frame's anchor by 0: exp(0) = I
+        R_att, att_valid = imu_att
+        e = se3.log_so3((state.R_world @ M_R).T @ R_att)
+        M_R = M_R @ se3.exp_so3(w_att * att_valid.to(e.dtype) * e)
+
+    if initialized:
         # Deskew with the two-frame SE(3) average of the motion: the raw
         # solve's error feeds the next targets and sustains a period-2
         # oscillation that the 2-tap average cancels.
@@ -106,8 +150,6 @@ def frontend_solve(feats: ScanFeatures, state: OdometryState, cfg: LegoLoamConfi
         dRh, dth = se3.interp(dRp, dtp, 0.5)
         M_R_avg, M_t_avg = se3.compose(state.R_prev_cur, state.t_prev_cur, dRh, dth)
     else:
-        dev = state.t_world.device
-        M_R, M_t = torch.eye(3, device=dev), torch.zeros(3, device=dev)
         M_R_avg, M_t_avg = M_R, M_t
 
     R_world, t_world = se3.compose(state.R_world, state.t_world, M_R, M_t)

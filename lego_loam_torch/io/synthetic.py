@@ -380,3 +380,57 @@ def lap_trajectory(
                 x = x + R @ np.array([speed, 0.0, 0.0])
                 yaw += dyaw
     return _start_at_identity(poses)
+
+
+def synth_imu_windows(poses, cfg, rate=200.0, noise=0.002, seed=0):
+    """Per-frame IMU sample windows from ground-truth poses (a copy of
+    `tools/campus_run.py::synth_imu_windows`): over each scan period the yaw
+    ramps from pose[i-1]'s to pose[i]'s with `noise` rad of Gaussian noise
+    (the courses are planar, so roll and pitch stay 0), and the
+    accelerometer reads gravity on the body z axis with 0.05 m/s^2 noise
+    (constant speed). Returns {"t": (T, S), "rpy": (T, S, 3), "acc": (T, S,
+    3), "mask": (T, S)}, S = cfg.pipeline.imu_window, for `stage_chunk`."""
+    T = len(poses)
+    S = cfg.pipeline.imu_window
+    sp = cfg.laser.scan_period
+    n = min(S, max(int(rate * sp) + 1, 2))
+    rs = np.random.RandomState(seed)
+    t = np.zeros((T, S), np.float32)
+    rpy = np.zeros((T, S, 3), np.float32)
+    acc = np.zeros((T, S, 3), np.float32)
+    mask = np.zeros((T, S), bool)
+    yaws = np.unwrap([np.arctan2(R[1, 0], R[0, 0]) for R, _ in poses])
+    for i in range(T):
+        y0 = yaws[i - 1] if i > 0 else yaws[i]
+        s = np.linspace(0.0, 1.0, n)
+        t[i, :n] = s * sp
+        rpy[i, :n, 2] = y0 * (1 - s) + yaws[i] * s + rs.randn(n) * noise
+        acc[i, :n, 2] = 9.81 + rs.randn(n) * 0.05
+        mask[i, :n] = True
+    return {"t": t, "rpy": rpy, "acc": acc, "mask": mask}
+
+
+def synth_wheel_odom(poses, cfg, seed=0, scale_err=1.005, yaw_noise=5e-4):
+    """A wheel-odometry pose stream (a copy of
+    `tools/campus_run.py::synth_wheel_odom`): the ground-truth steps with a
+    `scale_err` wheel scale error and `yaw_noise` rad of yaw noise a step,
+    integrated from identity. Returns ((T, 3, 3), (T, 3)) float32."""
+    rs = np.random.RandomState(seed)
+    T = len(poses)
+    R_out = np.zeros((T, 3, 3), np.float32)
+    t_out = np.zeros((T, 3), np.float32)
+    R_acc = np.eye(3)
+    t_acc = np.zeros(3)
+    R_out[0], t_out[0] = R_acc, t_acc
+    for i in range(1, T):
+        Rp, tp = poses[i - 1]
+        Rc, tc = poses[i]
+        dR = Rp.T @ Rc
+        dt = Rp.T @ (tc - tp) * scale_err
+        dyaw = rs.randn() * yaw_noise
+        c, s = np.cos(dyaw), np.sin(dyaw)
+        dR = dR @ np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+        t_acc = R_acc @ dt + t_acc
+        R_acc = R_acc @ dR
+        R_out[i], t_out[i] = R_acc, t_acc
+    return R_out, t_out

@@ -16,14 +16,23 @@ check later; an anchor-segment pose-graph solve at every
 `loop_solve_every_accepts`-th accepted closure and at the end of the
 stream, applied on the device by its own cost gate.
 
-The IMU and wheel-odometry priors, the sharded solves, global-map
-publishing and `save_artifacts` are not ported yet: a config that enables
-them is refused.
+With `use_imu_undistortion`, each scan's IMU window (staged with its chunk,
+or packed by `process_scan`) is integrated on the device, undistorts the
+segmented cloud and anchors the solved attitude; with `odom_prior_mode`,
+consecutive wheel-odometry poses give the scan-to-scan solve its motion
+prior. The previous odometry pose is carried on the host (`_last_odom`),
+shared by the chunk and the per-scan paths as in the reference.
+`publish_global_map` assembles the global map on the host every
+`global_map_every_n_frames` mapped frames; `save_artifacts` writes the
+reference's run artifacts. The reference's mesh-sharded solves run only
+with more than one device; on one device both packages take the paths
+here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -31,8 +40,9 @@ import torch
 
 from .backend import BackendState, backend_step_ds, downsample_current_scan, init_backend_state
 from .config import LegoLoamConfig
-from .frontend import deskew_outliers, frontend_solve, init_odometry_state, segment_features
+from .frontend import deskew_outliers, frontend_solve, imu_attitude, init_odometry_state, segment_features
 from .fusion import fuse_pose
+from .imu import integrate_imu, odom_prior_motion
 from .loopclosure import attempt_loop_closure, compute_loopinfo
 from .mapping import MapDiag
 from .math import se3
@@ -41,16 +51,6 @@ from .ops.projection import grid_from_range_image, host_pack_range_image, projec
 from .ops.segmentation import converged_labels
 from .posegraph import Factors, anchor_stride, reduced_solve
 from .types import OdometryState, ScanGrid
-
-
-def _unsupported(cfg: LegoLoamConfig):
-    if cfg.pipeline.use_imu_undistortion:
-        return "IMU undistortion"
-    if cfg.odometry.odom_prior_mode != "off":
-        return "the wheel-odometry prior"
-    if cfg.pipeline.publish_global_map:
-        return "global-map publishing"
-    return None
 
 
 @dataclasses.dataclass
@@ -72,9 +72,6 @@ class LegoLoamPipeline:
     frame); tests pass the reference's draw to compare frame by frame."""
 
     def __init__(self, cfg: LegoLoamConfig, seed: int = 0, device="cuda", ground_scores=None):
-        missing = _unsupported(cfg)
-        if missing:
-            raise NotImplementedError(f"{missing} is not ported to lego_loam_torch yet")
         if cfg.mapping.enable_loop_closure:
             anchor_stride(cfg)  # refuses a stride that leaves too many anchors, before any allocation
         self.cfg = cfg
@@ -84,9 +81,25 @@ class LegoLoamPipeline:
         self.fstate: OdometryState = init_odometry_state(cfg, self.device)
         self.bstate: BackendState = init_backend_state(cfg, self.device)
         self.frame_idx = 0
+        self._use_imu = cfg.pipeline.use_imu_undistortion
+        self._use_odom = cfg.odometry.odom_prior_mode != "off"
+        self._last_odom = None  # host (R, t) of the latest wheel-odometry pose
+        self._stop_requested = False
         self._log = {k: [] for k in ("odom_t", "fused_t", "map_R", "map_t", "map_time")}
         self._diags: list[MapDiag] = []
-        self.diagnostics = {"iterations": [], "records": []}
+        # mapping_ms: per mapped frame, the wall time between successive
+        # process_chunk calls over the previous chunk's mapped frames (the
+        # first gap, which includes first use, is dropped), as the
+        # reference's chunk path fills mapt.txt
+        self.diagnostics = {"mapping_ms": [], "iterations": [], "records": []}
+        self._chunk_t_prev = None
+        self._chunk_mapped_prev = 0
+        self._chunks_timed = 0
+        # global map, every global_map_every_n_frames mapped frames
+        self.latest_global_map = None
+        self.global_map_count = 0
+        self._mapped_frames = 0
+        self._next_global_map = cfg.mapping.global_map_every_n_frames
         self.trajectory = {"positions": [], "rpys": [], "times": []}
         self.odom_positions = self.fused_positions = None
         self._finalized = False
@@ -117,6 +130,18 @@ class LegoLoamPipeline:
 
     # -- input prep ---------------------------------------------------------
 
+    def _pack_points(self, scans):
+        """(C, max_points, 3) float32 points with their (C, max_points)
+        mask; NaN rows are misses."""
+        n = self.cfg.laser.max_points
+        buf = np.zeros((len(scans), n, 3), np.float32)
+        m = np.zeros((len(scans), n), bool)
+        for c, points in enumerate(scans):
+            k = min(len(points), n)
+            m[c, :k] = np.isfinite(points[:k]).all(axis=1)
+            buf[c, :k] = np.nan_to_num(points[:k])
+        return {"pts": buf, "mask": m}
+
     def _prep_many(self, scans):
         """Pack raw clouds ((N, 3), NaN rows = misses) into the chunk feed.
 
@@ -135,34 +160,49 @@ class LegoLoamPipeline:
             for c, points in enumerate(scans):
                 rimg[c], azr[c], elr[c], rowe[c] = host_pack_range_image(points, cfg)
             return {"rimg": rimg, "azr": azr, "elr": elr, "rowe": rowe}
-        n = cfg.laser.max_points
-        buf = np.zeros((C, n, 3), np.float32)
-        m = np.zeros((C, n), bool)
-        for c, points in enumerate(scans):
-            k = min(len(points), n)
-            m[c, :k] = np.isfinite(points[:k]).all(axis=1)
-            buf[c, :k] = np.nan_to_num(points[:k])
+        feed = self._pack_points(scans)
         q = cfg.pipeline.feed_quant
         if q > 0:
-            buf = np.clip(np.rint(buf * (1.0 / q)), -32767, 32767).astype(np.int16)
-        return {"pts": buf, "mask": m}
+            feed["pts"] = np.clip(np.rint(feed["pts"] * (1.0 / q)), -32767, 32767).astype(np.int16)
+        return feed
 
     def stage_chunk(self, pts, masks=None, timestamps=None, imu=None, odom=None) -> dict:
         """Move one chunk's inputs to the device without processing them.
 
         pts: a `_prep_many` feed, or a (C, max_points, 3) array with its
         (C, max_points) masks. Range codes go up as int32; timestamps, when
-        given, as float32. imu and odom are accepted for the reference's
-        signature and unused (configs that need them are refused)."""
+        given, as float32. With `use_imu_undistortion`, imu is the chunk's
+        sample windows {"t": (C, S), "rpy": (C, S, 3), "acc": (C, S, 3),
+        "mask": (C, S)} (S = imu_window; all masked when None); with the
+        wheel-odometry prior, odom is ((C, 3, 3), (C, 3)) poses (identity
+        when None), kept on the host as well for `process_chunk`."""
         prep = pts if isinstance(pts, dict) else {"pts": pts, "mask": masks}
+        dev = self.device
         xs = {}
         for k, v in prep.items():
             v = np.asarray(v)
             if v.dtype == np.uint16:
                 v = v.astype(np.int32)
-            xs[k] = torch.from_numpy(v).to(self.device)
+            xs[k] = torch.from_numpy(v).to(dev)
+        C = int(next(iter(xs.values())).shape[0])
         if timestamps is not None:
-            xs["ts"] = torch.as_tensor(np.asarray(timestamps, np.float32), device=self.device)
+            xs["ts"] = torch.as_tensor(np.asarray(timestamps, np.float32), device=dev)
+        if self._use_imu:
+            S = self.cfg.pipeline.imu_window
+            if imu is None:
+                imu = {"t": np.zeros((C, S)), "rpy": np.zeros((C, S, 3)), "acc": np.zeros((C, S, 3)),
+                       "mask": np.zeros((C, S), bool)}
+            xs["imu"] = {
+                k: torch.from_numpy(np.asarray(imu[k], bool if k == "mask" else np.float32)).to(dev)
+                for k in ("t", "rpy", "acc", "mask")
+            }
+        if self._use_odom:
+            if odom is None:
+                R, t = np.tile(np.eye(3, dtype=np.float32), (C, 1, 1)), np.zeros((C, 3), np.float32)
+            else:
+                R, t = np.array(odom[0], np.float32), np.array(odom[1], np.float32)
+            xs["odom_R"], xs["odom_t"] = torch.from_numpy(R).to(dev), torch.from_numpy(t).to(dev)
+            xs["odom_host"] = (R, t)
         return xs
 
     def stage_chunk_async(self, pts, masks=None, timestamps=None, imu=None, odom=None):
@@ -182,12 +222,13 @@ class LegoLoamPipeline:
             pts = pts.to(torch.float32) * cfg.pipeline.feed_quant
         return project_point_cloud(pts, xs["mask"][c], cfg)
 
-    def _frames(self, xs, kf_ts, log_ts):
+    def _frames(self, xs, kf_ts, log_ts, odom_prev=None):
         """Run the staged scans of `xs` as frames frame_idx, frame_idx+1, ...
         (frame_idx itself is left to the caller). kf_ts: (C,) device tensor
         of the times stored with keyframes; log_ts: the times logged per
-        mapped frame (floats, or the same device tensor). Returns the last
-        frame's poses."""
+        mapped frame (floats, or the same device tensor); odom_prev: the
+        wheel-odometry pose (device R, t) before the chunk's first scan,
+        with the prior on. Returns the last frame's poses."""
         cfg = self.cfg
         C = int(xs["rimg" if "rimg" in xs else "pts"].shape[0])
         f0 = self.frame_idx
@@ -201,11 +242,23 @@ class LegoLoamPipeline:
             for f in dataclasses.fields(ScanGrid)
         })
         raw, _ = converged_labels(stacked, cfg)
+        tracks = None
+        if self._use_imu:  # all C windows at once
+            im = xs["imu"]
+            tracks = integrate_imu(im["t"], im["rpy"], im["acc"], mask=im["mask"])
 
         div = cfg.mapping.mapping_frequency_divider
         for c in range(C):
-            _grid, seg, feats = segment_features(grids[c], cfg, raw[c])
-            self.fstate, out = frontend_solve(feats, self.fstate, cfg)
+            track = tracks.frame(c) if tracks is not None else None
+            prior = None
+            if self._use_odom:
+                cur = (xs["odom_R"][c], xs["odom_t"][c])
+                prior = odom_prior_motion(self.fstate.R_world, self.fstate.t_world, *odom_prev, *cur,
+                                          cfg.odometry.odom_lever_arm)
+                odom_prev = cur
+            _grid, seg, feats = segment_features(grids[c], cfg, raw[c], track)
+            imu_att = imu_attitude(track) if track is not None else None
+            self.fstate, out = frontend_solve(feats, self.fstate, cfg, prior, imu_att)
             map_feats = feats.replace(
                 corner_less_sharp=out["map_corner"], surf_less_flat=out["map_surf"]
             )
@@ -235,7 +288,10 @@ class LegoLoamPipeline:
     def process_chunk(self, pts, masks=None, timestamps=None, imu=None, odom=None):
         """Process C scans: pts is a staged feed from `stage_chunk`, a
         `_prep_many` feed, a (C, max_points, 3) array with its masks, or a
-        list of raw (N, 3) clouds. Loop closure is checked once per chunk.
+        list of raw (N, 3) clouds; imu and odom as `stage_chunk` takes them
+        (ignored for a staged feed). Loop closure is checked once per chunk.
+        The wheel-odometry prior of the chunk's first scan is from the last
+        pose seen before it (none on a stream's first scan: identity).
 
         Without timestamps, frame i's keyframe time is float32(i) times
         scan_period in float32, as the reference's chunk runner derives it
@@ -246,17 +302,31 @@ class LegoLoamPipeline:
         if isinstance(pts, dict) and isinstance(next(iter(pts.values())), torch.Tensor):
             xs = pts
         elif isinstance(pts, dict) or masks is not None:
-            xs = self.stage_chunk(pts, masks, timestamps)
+            xs = self.stage_chunk(pts, masks, timestamps, imu, odom)
         else:
-            xs = self.stage_chunk(self._prep_many(pts), timestamps=timestamps)
+            xs = self.stage_chunk(self._prep_many(pts), timestamps=timestamps, imu=imu, odom=odom)
         C = int(xs["rimg" if "rimg" in xs else "pts"].shape[0])
+        odom_prev = None
+        if self._use_odom:
+            R, t = xs["odom_host"]
+            prev = self._last_odom if self._last_odom is not None else (R[0], t[0])
+            odom_prev = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in prev)
+            self._last_odom = (R[-1], t[-1])
+        now = time.perf_counter()
+        if self._chunk_t_prev is not None and self._chunk_mapped_prev:
+            self._chunks_timed += 1
+            if self._chunks_timed > 1:
+                per = (now - self._chunk_t_prev) * 1e3 / self._chunk_mapped_prev
+                self.diagnostics["mapping_ms"].extend([per] * self._chunk_mapped_prev)
+        self._chunk_t_prev = now
         if "ts" in xs:
             kf_ts = log_ts = xs["ts"]
         else:
             frames = np.arange(self.frame_idx, self.frame_idx + C)
             kf_ts = torch.from_numpy(frames.astype(np.float32) * np.float32(cfg.laser.scan_period)).to(self.device)
             log_ts = (frames * cfg.laser.scan_period).astype(np.float32)
-        self._frames(xs, kf_ts, log_ts)
+        self._frames(xs, kf_ts, log_ts, odom_prev)
+        f0 = self.frame_idx
         self.frame_idx += C
 
         if cfg.mapping.enable_loop_closure and (
@@ -265,44 +335,115 @@ class LegoLoamPipeline:
             self._last_loop_check = self.frame_idx
             self._linfo_q.append(self._loopinfo_probe())
             self._try_loop_closure()
+        div = cfg.mapping.mapping_frequency_divider
+        self._chunk_mapped_prev = sum(1 for f in range(f0, f0 + C) if f % div == 0)
+        self._mapped_frames += self._chunk_mapped_prev
+        self._maybe_publish_global_map()
+
+    def _pack_imu(self, imu_samples):
+        """(S_raw, 7) rows [t_rel, roll, pitch, yaw, ax, ay, az] -> one
+        fixed (S,) window {"t", "rpy", "acc", "mask"} of numpy arrays,
+        padded and masked to imu_window (rows beyond it dropped)."""
+        S = self.cfg.pipeline.imu_window
+        buf = np.zeros((S, 7), np.float32)
+        m = np.zeros((S,), bool)
+        if imu_samples is not None and len(imu_samples):
+            k = min(len(imu_samples), S)
+            buf[:k] = np.asarray(imu_samples, np.float32)[:k]
+            m[:k] = True
+        return {"t": buf[:, 0], "rpy": buf[:, 1:4], "acc": buf[:, 4:7], "mask": m}
+
+    def _pack_odom(self, odom_pose):
+        """The current wheel-odometry pose (R, t) -> {R_prev, t_prev, R_cur,
+        t_cur} numpy arrays, carrying the previous pose on the host: the
+        motion is identity on a stream's first scan, and a scan without a
+        pose repeats the last one."""
+        if odom_pose is None:
+            cur = self._last_odom
+        else:
+            cur = (np.asarray(odom_pose[0], np.float32), np.asarray(odom_pose[1], np.float32))
+        if cur is None:
+            cur = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+        prev = self._last_odom if self._last_odom is not None else cur
+        self._last_odom = cur
+        return {"R_prev": prev[0], "t_prev": prev[1], "R_cur": cur[0], "t_cur": cur[1]}
 
     def process_scan(self, points, timestamp=None, imu_samples=None, odom_pose=None):
         """Process one raw scan ((N, 3), NaN rows = misses) as one frame.
 
-        Its time is `timestamp`, else frame_idx * scan_period in float64,
+        The cloud goes up as float32 points, projected on the device (the
+        chunk path's feed_mode and feed_quant do not apply, as in the
+        reference). Its time is `timestamp`, else frame_idx * scan_period in float64,
         stored with a keyframe as float32 and logged as given, as the
-        reference's process_scan does. Loop closure is checked after a
-        mapped frame. imu_samples and odom_pose are accepted for the
-        reference's signature and unused (configs that need them are
-        refused). Returns the frame's odometry, map and fused poses."""
+        reference's process_scan does. imu_samples: optional (S, 7) rows
+        [t_rel_to_scan_start, roll, pitch, yaw, ax, ay, az] over the scan
+        (used with `use_imu_undistortion`); odom_pose: optional (R, t)
+        wheel-odometry pose at this scan (used with the prior on). Loop
+        closure is checked, and the global map published, after a mapped
+        frame. Returns the frame's odometry, map and fused poses."""
         cfg = self.cfg
         t_scan = timestamp if timestamp is not None else self.frame_idx * cfg.laser.scan_period
-        xs = self.stage_chunk(self._prep_many([points]), timestamps=[t_scan])
-        out = self._frames(xs, xs["ts"], [t_scan])
-        if (
-            cfg.mapping.enable_loop_closure
-            and self.frame_idx % cfg.mapping.mapping_frequency_divider == 0
-            and self.frame_idx - self._last_loop_check >= cfg.mapping.loop_every_n_frames
-        ):
-            self._last_loop_check = self.frame_idx
-            self._linfo_q.append(self._loopinfo_probe())
-            self._try_loop_closure()
+        kw, odom_prev = {}, None
+        if self._use_imu:
+            kw["imu"] = {k: v[None] for k, v in self._pack_imu(imu_samples).items()}
+        if self._use_odom:
+            od = self._pack_odom(odom_pose)
+            kw["odom"] = (od["R_cur"][None], od["t_cur"][None])
+            odom_prev = tuple(torch.from_numpy(np.ascontiguousarray(od[k])).to(self.device) for k in ("R_prev", "t_prev"))
+        xs = self.stage_chunk(self._pack_points([points]), timestamps=[t_scan], **kw)
+        out = self._frames(xs, xs["ts"], [t_scan], odom_prev)
+        if self.frame_idx % cfg.mapping.mapping_frequency_divider == 0:
+            if (
+                cfg.mapping.enable_loop_closure
+                and self.frame_idx - self._last_loop_check >= cfg.mapping.loop_every_n_frames
+            ):
+                self._last_loop_check = self.frame_idx
+                self._linfo_q.append(self._loopinfo_probe())
+                self._try_loop_closure()
+            self._mapped_frames += 1
+            self._maybe_publish_global_map()
         self.frame_idx += 1
         return out
 
-    def run(self, scans, timestamps=None, chunk: int = 16):
-        """Process a sequence of raw scans in chunks; returns the
-        trajectories (map, odometry, fused positions) as numpy arrays."""
-        for s in range(0, len(scans), chunk):
-            ts = None if timestamps is None else timestamps[s : s + chunk]
-            self.process_chunk(self._prep_many(scans[s : s + chunk]), timestamps=ts)
+    def request_stop(self):
+        """End `run` before its next scan, or `run_chunked` at its next
+        chunk boundary or tail scan (the reference's /initialpose run-control
+        flag, which hands over to a re-localization session)."""
+        self._stop_requested = True
+
+    def _maybe_publish_global_map(self):
+        """Every `global_map_every_n_frames` mapped frames (with
+        `publish_global_map`): the keyframes within
+        `global_map_visualization_search_radius` of the map pose, gathered
+        to the host and voxel-filtered, into `latest_global_map`."""
+        cfg = self.cfg
+        if not cfg.pipeline.publish_global_map or self._mapped_frames < self._next_global_map:
+            return
+        from .mapproducts import global_map
+
+        self._next_global_map = self._mapped_frames + cfg.mapping.global_map_every_n_frames
+        self.latest_global_map = global_map(
+            self.bstate, self.bstate.t_map.cpu().numpy(), cfg.mapping.global_map_visualization_search_radius, cfg
+        )
+        self.global_map_count += 1
+
+    def run(self, scans, timestamps=None):
+        """Process a sequence of raw scans one by one through `process_scan`
+        (until `request_stop`), then finalize; returns the trajectories
+        (map, odometry, fused positions) as numpy arrays."""
+        for k in range(len(scans)):
+            if self._stop_requested:
+                break
+            self.process_scan(scans[k], None if timestamps is None else timestamps[k])
         return self._result()
 
     def run_chunked(self, scans, chunk: int = 16, timestamps=None):
         """Whole chunks through `process_chunk`, the next one packed and
         staged in a worker thread meanwhile; the ragged tail through
-        `process_scan`. Finalizes (draining loop closure) and returns the
-        trajectories as `run` does."""
+        `process_scan`. Honours `request_stop` at chunk boundaries and
+        before each tail scan. Finalizes (draining loop closure) and returns
+        the trajectories as `run` does. No IMU or odometry stream is taken:
+        feed those through `stage_chunk` / `process_chunk`."""
         T = len(scans)
 
         def prep_and_stage(s0):
@@ -312,13 +453,15 @@ class LegoLoamPipeline:
         s = 0
         if T >= chunk:
             fut = self._stager_submit(prep_and_stage, 0)
-            while s + chunk <= T:
+            while s + chunk <= T and not self._stop_requested:
                 xs = fut.result()
                 if s + 2 * chunk <= T:
                     fut = self._stager_submit(prep_and_stage, s + chunk)
                 self.process_chunk(xs)
                 s += chunk
         for k in range(s, T):
+            if self._stop_requested:
+                break
             self.process_scan(scans[k], None if timestamps is None else timestamps[k])
         return self._result()
 
@@ -382,6 +525,14 @@ class LegoLoamPipeline:
                 for k in range(len(self._diags))
             ]
         self._finalized = True
+
+    def save_artifacts(self, out_dir: str):
+        """Finalize, then write the reference's run artifacts (pose.txt,
+        mapt.txt, MapIterTimes.txt, LocalInfo.txt) under out_dir."""
+        self.finalize()
+        from .utils.metrics import save_run_artifacts
+
+        save_run_artifacts(out_dir, self.trajectory, self.diagnostics)
 
     def keyframe_trajectory(self):
         """Corrected keyframe poses (R (A,3,3), t (A,3), times (A,)) as

@@ -113,6 +113,78 @@ def test_labels_past_the_pallas_sweep_cap():
     assert (np.asarray(pal) > 0).sum() > 20000
 
 
+def _staircase(h, w):
+    """A zigzag path: right one column, then one row down (up at the
+    bottom row, and so on), across the scan."""
+    c = np.zeros((h, w), bool)
+    r, col, d = 0, 1, 1
+    while col < w - 2:
+        c[r, col] = c[r, col + 1] = True
+        col += 1
+        if not 0 <= r + d < h:
+            d = -d
+        r += d
+        c[r, col] = True
+    return c
+
+
+def _band_snake(h=16, w=1800, band=7):
+    """Staircases in bands of `band` rows, each band's path run the other
+    way and joined to the next through the empty row between them: one
+    path of ~7,200 pixels on a 16-row scan."""
+    c = np.zeros((h, w), bool)
+    top, forward = 0, True
+    while top + band <= h:
+        s = _staircase(band, w) if forward else _staircase(band, w)[:, ::-1]
+        c[top:top + band] |= s
+        cols = np.nonzero(s.any(0))[0]
+        end = cols.max() if forward else cols.min()
+        if top + 2 * band <= h:
+            c[top + np.nonzero(s[:, end])[0].max():top + band + 1, end] = True
+        top, forward = top + band + 1, not forward
+    return c
+
+
+def test_labels_past_the_reference_round_cap():
+    """The reference's CPU labeller stops after `label_prop_iters` (10)
+    sweep-and-hook rounds, its Pallas kernel after 64 sweeps; K1 and its
+    twin run to the fixpoint, a deliberate divergence. They agree wherever
+    the reference converges within its cap, which every rendered scene of
+    these tests does. The mask here is one it does not: one path through
+    two banded staircases (the search: single staircases across 16, 32
+    and 64 rows converge in 8-10 rounds, random depth-first mazes in 5-8;
+    two staircase bands joined into one path need 22 rounds at 16 rows).
+    After 10 rounds the reference leaves thousands of the path's pixels
+    with labels above its minimum; with the cap raised to 64 it reaches the
+    port's labels exactly."""
+    import dataclasses
+
+    from lego_loam_tpu.types import ScanGrid as RefScanGrid
+
+    cand = _band_snake()
+    H, W = cand.shape
+    rng = np.where(cand, 10.0, np.inf).astype(np.float32)  # equal ranges: every neighbour pair connects
+    ground = np.where(cand, 0, -1).astype(np.int8)
+    fields = dict(xyz=np.zeros((H, W, 3), np.float32), range=rng, valid=cand, ground=ground,
+                  label=np.zeros((H, W), np.int32), rel_time=np.zeros((H, W), np.float32))
+    ours, _ = PS.converged_labels(ScanGrid(**{k: torch.from_numpy(v) for k, v in fields.items()}), CFG)
+    ours = ours.numpy()
+    root = np.flatnonzero(cand).min()
+    assert (ours[cand] == root).all() and (ours[~cand] == H * W).all()
+
+    def reference(iters):
+        cfg = dataclasses.replace(REF, segmentation=dataclasses.replace(REF.segmentation, label_prop_iters=iters))
+        grid = RefScanGrid(**{k: jnp.asarray(v) for k, v in fields.items()})
+        return np.asarray(jax.jit(lambda g: RS.converged_labels(g, cfg)[0])(grid))
+
+    assert REF.segmentation.label_prop_iters == 10
+    capped = reference(10)
+    unfinished = int((capped[cand] != root).sum())
+    assert unfinished > 1000, unfinished
+    assert len(np.unique(capped[cand])) > 1
+    np.testing.assert_array_equal(reference(64), ours)
+
+
 def test_segment_cloud_fields(stages):
     grid = port(stages["grounded"], ScanGrid)
     labelled, seg = PS.segment_cloud(grid, CFG)

@@ -1,5 +1,5 @@
 """The slice end to end: the reference's chunk runner and the port's
-`LegoLoamPipeline.run` over the same six swept scans, both starting from the
+`LegoLoamPipeline.run_chunked` over the same six swept scans, both starting from the
 reference's initial states (through `lego_loam_torch.convert`) and both
 drawing the reference's RANSAC scores."""
 
@@ -31,7 +31,7 @@ def runs():
     ours = LegoLoamPipeline(cfg, device="cpu", ground_scores=lambda i: ref_scores(cfg, i))
     ours.fstate = odometry_state_from_reference(start_f, "cpu")
     ours.bstate = backend_state_from_reference(start_b, "cpu")
-    out = ours.run(scans, chunk=3)  # two chunks: K1's batch and the carry across chunks
+    out = ours.run_chunked(scans, chunk=3)  # two chunks: K1's batch and the carry across chunks
     truth = np.stack([t for _, t in poses])
     return ref, ours, out, truth
 
