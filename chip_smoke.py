@@ -6,7 +6,8 @@
 Phases, each printing a progress line:
   1. the card's name and power limit (nvidia-smi);
   2. build both CUDA kernels from `lego_loam_torch/csrc/` (one nvcc each,
-     in parallel) and print the seconds taken and ptxas's register report;
+     in parallel) and print the seconds taken and ptxas's register report,
+     then the native host library from `native/lego_native.cpp` (g++);
   3. K1 (connected components) against its plain twin at the three
      presets' heights: bit-equal on full-width scans of `vlp16()` (16 x
      1800), `vlp32c()` (32 x 1800) and `hdl64e()` (64 x 1800), one more
@@ -49,6 +50,25 @@ Phases, each printing a progress line:
      32, then `finalize`): the lap's checks, and an odometry ATE below the
      plain lap's; then `integrate_imu` + `undistort_to` of one turning
      frame's window and segmented cloud on the card against the CPU;
+  7c. the product entry point: tools/make_fixtures.py's course (64 swept
+     scans of a straight drive at 0.2 m a scan) written as a KITTI sequence
+     and a rosbag2 bag, and `python -m lego_loam_torch.run --profile` over
+     each in a child process on the card (the KITTI run through the native
+     feeder, with --checkpoint): exit 0, the artifact set, map ATE < 0.1 m,
+     both kernels launched (counted by each run, profile.json);
+  7d. checkpoint/resume through the API at full width: a run saved at scan
+     32 and resumed in a fresh pipeline ends within 2e-2 m of the
+     uninterrupted run; save -> load -> save bit-equal; the CLI's file
+     loads;
+  7e. re-localization: `--remap` on the KITTI run's map over the rosbag2
+     stream (< 0.1 m from the mid-sweep truth), and `localize_scan` from a
+     0.3 m / 3 deg perturbed start (< 0.12 m, < 1 deg), K1 and K2 launched;
+  7f. the native library (g++ from native/lego_native.cpp) against its
+     plain twins on the fixture's scans: prep_cloud and the ScanFeeder
+     stream bit-equal;
+  7g. the ESKF study: `run_eskf` over a generated 5,000-tick turn on the
+     card and, in a spawned process meanwhile, on the CPU (positions
+     within 1e-3 m, RMSE < 0.1 m), timed;
   8. torch.profiler over one warm chunk of 4 scans: device time and device
      kernels per scan, the device's busy share, the costliest kernels
      ("not measured" where the profiler cannot trace the card);
@@ -70,9 +90,12 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -84,7 +107,10 @@ CHUNK = 16
 N_PRESET = 8
 N_SCAN_RUN = 4  # scans of the per-scan `run`
 # the paths whose launches the kernels line reports, each counted alone
-PATHS = ("slice", "scan_run", "lap", "imu_lap")
+PATHS = ("slice", "scan_run", "lap", "imu_lap", "cli", "reloc")
+N_CLI = 64  # swept scans of the KITTI / rosbag2 fixture (tools/make_fixtures.py's course)
+ESKF_TICKS = 5000
+ROOT = Path(__file__).resolve().parent
 K2_SITES = ("odometry_corner", "odometry_surf", "mapping_corner", "mapping_surf")
 # The lap drive: bench.py's flagship configuration over a shorter campus
 # lap (340 frames, 34 s, longer than the 30 s loop_time_gap), cut after one
@@ -709,6 +735,271 @@ def run_imu_lap(cfg, poses, gt, scans, plain_odom_ate):
     summary.update(undistort_card_vs_cpu_m=err, undistort_max_move_m=moved)
     return summary
 
+
+def cli_fixture(cfg, d):
+    """tools/make_fixtures.py's course at full width: N_CLI swept scans of a
+    straight drive at 0.2 m a scan (5 mm noise, seed 300 + i), written as a
+    KITTI sequence and a rosbag2 bag by that tool's writers (numpy and
+    sqlite3 only). Returns (truth positions, scans, kitti dir, bag dir)."""
+    from lego_loam_torch.io.synthetic import straight_trajectory, swept_scan_sequence
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    from make_fixtures import write_kitti, write_rosbag2
+
+    poses = straight_trajectory(N_CLI, speed=0.2)
+    scans = swept_scan_sequence(poses, cfg, noise=0.005, seed=300)
+    times = [i * cfg.laser.scan_period for i in range(N_CLI)]
+    seq, bag = os.path.join(d, "kitti", "00"), os.path.join(d, "bag")
+    write_kitti(seq, scans, times)
+    write_rosbag2(bag, scans, times)
+    return np.stack([t for _, t in poses]), scans, seq, bag
+
+
+def cli(*args, out):
+    """`python -m lego_loam_torch.run ... --out out --profile` in a child
+    process on the card; fails on a non-zero exit. Returns its profile.json
+    (scans/s and its own kernel launch counts)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "lego_loam_torch.run", *args, "--out", out, "--profile"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=900)
+    if r.returncode != 0:
+        raise AssertionError(f"lego_loam_torch.run {' '.join(args)} exited {r.returncode}:\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    for line in r.stdout.splitlines():
+        if line.startswith(("processed", "localized", "resumed")):
+            log(f"  run: {line}")
+    with open(os.path.join(out, "profile.json")) as f:
+        prof = json.load(f)
+    prof["process_seconds"] = time.perf_counter() - t0
+    return prof
+
+
+def run_cli(truth, seq, bag, d):
+    """The product entry point on the card: `python -m lego_loam_torch.run`
+    over the KITTI sequence (the native feeder, with --checkpoint) and over
+    the rosbag2 bag. Each exits 0 and writes pose.txt (one pose a scan,
+    finite, map ATE < 0.1 m), mapt.txt (each scan's mapping time, under
+    --profile), MapIterTimes.txt and cornerMap.pcd; both kernels launched."""
+    runs = {}
+    for name, args in (("kitti", ("--kitti", seq, "--checkpoint", os.path.join(d, "cli_state.npz"))),
+                       ("rosbag", ("--rosbag", bag))):
+        out = os.path.join(d, f"out_{name}")
+        prof = cli(*args, out=out)
+        pose = np.loadtxt(os.path.join(out, "pose.txt"))
+        mapt = np.loadtxt(os.path.join(out, "mapt.txt"))
+        iters = np.loadtxt(os.path.join(out, "MapIterTimes.txt"))
+        if pose.shape != (N_CLI, 7) or not np.isfinite(pose).all():
+            raise AssertionError(f"CLI {name}: pose.txt has shape {pose.shape} or non-finite values")
+        if mapt.shape != (N_CLI,) or iters.shape != (N_CLI,) or not os.path.getsize(os.path.join(out, "cornerMap.pcd")):
+            raise AssertionError(f"CLI {name}: mapt.txt {mapt.shape}, MapIterTimes.txt {iters.shape} or no cornerMap.pcd")
+        ate_map = ate(pose[:, :3], truth)
+        launches, sites = prof["launches"], prof["launches_by_site"]
+        log(f"CLI {name}: {prof['scans']} scans in {prof['seconds']:.3f} s = {prof['scans_per_s']:.3f} scans/s "
+            f"({prof['process_seconds']:.1f} s for the whole process), map ATE {ate_map:.4f} m, mapping step "
+            f"{np.median(mapt):.3f} ms median (--profile, synchronized), stages {prof['stages_mean_ms']}; "
+            f"launches {launches}, by site {sites}")
+        if not ate_map < 0.1:
+            raise AssertionError(f"CLI {name}: map ATE {ate_map:.4f} m >= 0.1 m")
+        if not (launches.get("cc_label_prop", 0) > 0 and all(sites.get(f"knn_top5@{k}", 0) > 0 for k in K2_SITES)):
+            raise AssertionError(f"CLI {name}: a kernel of the path was not launched: {launches} {sites}")
+        runs[name] = {"scans_per_s": prof["scans_per_s"], "seconds": prof["seconds"], "ate_map_m": ate_map,
+                      "mapping_ms_median": float(np.median(mapt)), "launches": launches, "launches_by_site": sites}
+    total = {k: runs["kitti"]["launches"].get(k, 0) + runs["rosbag"]["launches"].get(k, 0)
+             for k in ("cc_label_prop", "knn_top5")}
+    return {"runs": runs, "launches": total}
+
+
+def run_checkpoint(cfg, scans, d):
+    """Checkpoint and resume through the API at full width: the
+    uninterrupted per-scan run (twice, for the card's run-to-run spread),
+    then a run saved at N_CLI/2 and resumed in
+    a fresh pipeline, whose final map pose lies within 2e-2 m of the
+    uninterrupted run's (tests/test_cli_e2e.py:126); a save -> load -> save
+    round trip gives the same keys, dtypes and bytes; the CLI's checkpoint
+    loads at frame N_CLI."""
+    from lego_loam_torch import checkpoint
+    from lego_loam_torch.pipeline import LegoLoamPipeline
+
+    half = N_CLI // 2
+    t_whole = []
+    for _ in range(2):  # twice: the card's run-to-run spread beside the resume's difference
+        whole = LegoLoamPipeline(cfg)
+        whole.run(scans)
+        t_whole.append(whole.bstate.t_map.cpu().numpy())
+        del whole
+        gc.collect()
+    spread = float(np.linalg.norm(t_whole[1] - t_whole[0]))
+    t_whole = t_whole[0]
+    a = LegoLoamPipeline(cfg)
+    a.run(scans[:half])
+    path = os.path.join(d, "half.npz")
+    t0 = time.perf_counter()
+    checkpoint.save(a, path)
+    save_s = time.perf_counter() - t0
+    del a
+    gc.collect()
+    t0 = time.perf_counter()
+    b = checkpoint.load(LegoLoamPipeline(cfg), path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if b.frame_idx != half:
+        raise AssertionError(f"checkpoint: resumed at frame {b.frame_idx}, not {half}")
+    b.run(scans[half:])
+    diff = float(np.linalg.norm(b.bstate.t_map.cpu().numpy() - t_whole))
+    del b
+    gc.collect()
+    again = os.path.join(d, "again.npz")
+    checkpoint.save(checkpoint.load(LegoLoamPipeline(cfg), path), again)
+    with np.load(path) as x, np.load(again) as y:
+        if sorted(x.files) != sorted(y.files):
+            raise AssertionError("checkpoint round trip: the keys differ")
+        for k in x.files:
+            u, v = x[k], y[k]
+            if u.dtype != v.dtype or u.shape != v.shape or u.tobytes() != v.tobytes():
+                raise AssertionError(f"checkpoint round trip: {k} differs")
+        n_keys = len(x.files)
+    gc.collect()
+    cli_frame = checkpoint.load(LegoLoamPipeline(cfg), os.path.join(d, "cli_state.npz")).frame_idx
+    if cli_frame != N_CLI:
+        raise AssertionError(f"the CLI's checkpoint resumes at frame {cli_frame}, not {N_CLI}")
+    gc.collect()
+    mb = os.path.getsize(path) / 2 ** 20
+    log(f"checkpoint: saved at frame {half} and resumed, final map pose {diff:.2e} m from the uninterrupted run's "
+        f"(two uninterrupted runs: {spread:.2e} m apart); "
+        f"{n_keys} arrays, {mb:.1f} MiB compressed ({cfg.mapping.max_keyframes} keyframes), save {save_s:.2f} s, "
+        f"load {load_s:.2f} s; save -> load -> save bit-equal; the CLI's checkpoint loads at frame {cli_frame}")
+    if not diff < 2e-2:
+        raise AssertionError(f"checkpoint: resumed run ends {diff:.4f} m from the uninterrupted run (>= 2e-2 m)")
+    return {"resume_diff_m": diff, "rerun_diff_m": spread, "file_mib": mb, "save_s": save_s, "load_s": load_s}
+
+
+def run_reloc(cfg, truth, kitti_out, bag, d):
+    """Re-localization: `--remap` on the KITTI run's map over the rosbag2
+    stream (each scan from the previous pose; a swept scan is not deskewed,
+    so it is held against the truth halfway through its sweep: < 0.1 m),
+    then `localize_scan` from a 0.3 m / 3 deg perturbed start as
+    tests/test_relocalize.py:52-76 (error < 0.12 m and 1 deg), K1 and K2
+    launched in both."""
+    from lego_loam_torch import cuda as kcuda
+    from lego_loam_torch.io.synthetic import render_scan, straight_trajectory
+    from lego_loam_torch.mapproducts import load_high_dense_map
+    from lego_loam_torch.relocalize import localize_scan, map_state_from_cloud
+
+    out = os.path.join(d, "out_reloc")
+    prof = cli("--remap", kitti_out, "--rosbag", bag, out=out)
+    traj = np.loadtxt(os.path.join(out, "relocalized.txt"))
+    mid = np.concatenate([truth[:1], (truth[:-1] + truth[1:]) / 2])
+    if traj.shape != (N_CLI, 3):
+        raise AssertionError(f"--remap wrote {traj.shape} poses")
+    err = np.linalg.norm(traj - mid, axis=1)
+    launches, sites = prof["launches"], prof["launches_by_site"]
+    log(f"reloc --remap: {prof['scans']} scans at {prof['scans_per_s']:.3f} scans/s, error against the mid-sweep "
+        f"truth max {err.max():.4f} m, mean {err.mean():.4f} m; launches {launches}, by site {sites}")
+    dense, _ = load_high_dense_map(os.path.join(kitti_out, "denseCloud.pcd"))
+    R_true, t_true = straight_trajectory(N_CLI, speed=0.2)[N_CLI // 2]
+    scan = render_scan(R_true, t_true, cfg, noise=0.005, seed=99)
+    yaw = np.deg2rad(3.0)
+    R0 = np.array([[np.cos(yaw), -np.sin(yaw), 0], [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1]]) @ R_true
+    t0 = t_true + np.array([0.3, -0.2, 0.05])
+    submap = map_state_from_cloud(dense, cfg, center=t_true)
+    kcuda.reset_counts()
+    R, t, diag = localize_scan(scan, submap, R0, t0, cfg)
+    torch.cuda.synchronize()
+    direct = dict(kcuda.LAUNCHES)
+    direct_sites = dict(kcuda.SITES)
+    e_t = float(np.linalg.norm(t.cpu().numpy() - t_true))
+    R = R.cpu().numpy()
+    e_r = float(np.rad2deg(np.arccos(np.clip((np.trace(R_true.T @ R) - 1) / 2, -1, 1))))
+    log(f"reloc localize_scan from a 0.3 m / 3 deg perturbed start: error {e_t:.4f} m, {e_r:.3f} deg, "
+        f"{int(diag.iterations)} GN iterations; launches {direct}, by site {direct_sites}")
+    if not (err.max() < 0.1 and e_t < 0.12 and e_r < 1.0):
+        raise AssertionError(f"reloc: --remap error {err.max():.4f} m, perturbed start {e_t:.4f} m / {e_r:.3f} deg")
+    for what, ln, st in (("--remap", launches, sites), ("localize_scan", direct, direct_sites)):
+        if not (ln.get("cc_label_prop", 0) > 0 and all(st.get(f"knn_top5@{k}", 0) > 0
+                                                       for k in ("mapping_corner", "mapping_surf"))):
+            raise AssertionError(f"reloc {what}: a kernel of the path was not launched: {ln} {st}")
+    return {"scans_per_s": prof["scans_per_s"], "max_err_m": float(err.max()), "perturbed_err_m": e_t,
+            "perturbed_err_deg": e_r, "launches": launches, "launches_by_site": sites}
+
+
+def run_native(seq, scans, cfg):
+    """The native host library (g++ from native/lego_native.cpp) against its
+    plain twins on the fixture's real scans: prep_cloud on a rendered scan
+    (NaN rows included) and the ScanFeeder stream over the KITTI files,
+    bit-equal, indices 0, 1, ... in order, timestamps 0.1 k."""
+    from lego_loam_torch import native
+    from lego_loam_torch.io.kitti import KittiSequence
+
+    cap = cfg.laser.max_points
+    a, b = native.prep_cloud(scans[0], cap), native.prep_cloud_plain(scans[0], cap)
+    if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("native prep_cloud differs from its twin")
+    files = KittiSequence(seq).files
+    t0 = time.perf_counter()
+    with native.ScanFeeder(files, cap) as feeder:
+        items = list(iter(feeder.next, None))
+    feed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = native.ScanFeederPlain(files, cap)
+    want = list(iter(plain.next, None))
+    plain_s = time.perf_counter() - t0
+    if [i[0] for i in items] != list(range(len(files))) or len(want) != len(items):
+        raise AssertionError(f"native feeder indices {[i[0] for i in items]}")
+    for x, y in zip(items, want):
+        if not (x[0] == y[0] and x[3] == y[3] and np.array_equal(x[1], y[1]) and np.array_equal(x[2], y[2])):
+            raise AssertionError(f"native feeder scan {x[0]} differs from its twin")
+    log(f"native: prep_cloud bit-equal to its twin on a {len(scans[0])}-point scan ({int(a[1].sum())} finite); "
+        f"ScanFeeder over {len(files)} KITTI files bit-equal to its twin, indices in order, "
+        f"{1e3 * feed_s / len(files):.3f} ms a scan (plain {1e3 * plain_s / len(files):.3f} ms, host)")
+    return {"feeder_ms_per_scan": 1e3 * feed_s / len(files), "plain_ms_per_scan": 1e3 * plain_s / len(files)}
+
+
+def eskf_run(data_dir, device, T):
+    """run_eskf over the first T ticks of the stream in data_dir on `device`:
+    (positions (T, 3) as numpy, wall seconds)."""
+    from lego_loam_torch import eskf as E
+    from lego_loam_torch.io import eskf_data
+
+    D = eskf_data.load(data_dir)
+    qn = eskf_data.quaternion_noise_scale(D["lidar_rpy_gt"], D["lidar_rpy"])
+    s0 = E.init_state(D["gt_pos"][0], D["gt_vel"][0], D["gt_att"][0], device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, hist = E.run_eskf(D["acc_mea"][:T], D["omega_mea"][:T], D["lidar_pos"], D["lidar_rpy"], D["vel_count"][:T],
+                         D["steer_count"][:T], s0, qn)
+    return hist["pos"].cpu().numpy(), time.perf_counter() - t0
+
+
+def run_eskf_phase(d):
+    """The ESKF study on the card: run_eskf over a generated ESKF_TICKS-tick
+    constant-radius turn (io.synthetic.synth_eskf_fixture, in the
+    reference fixtures' JSON format) on the card, and the same stream on
+    the CPU in a spawned process meanwhile (both loops are host-bound):
+    positions within 1e-3 m of each other, RMSE against the ground truth
+    < 0.1 m (the bound of tests/test_eskf.py:91)."""
+    import multiprocessing
+
+    from lego_loam_torch.io import eskf_data
+    from lego_loam_torch.io.synthetic import synth_eskf_fixture
+
+    data_dir = os.path.join(d, "eskf")
+    yaw_rate = synth_eskf_fixture(data_dir, n=ESKF_TICKS + 1, speed=1.0, steer=0.05, seed=0)
+    T = ESKF_TICKS
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        cpu_job = pool.apply_async(eskf_run, (data_dir, "cpu", T))
+        card, card_s = eskf_run(data_dir, "cuda", T)
+        cpu, cpu_s = cpu_job.get(timeout=900)
+    diff = float(np.abs(card - cpu).max())
+    rmse = ate(card, eskf_data.load(data_dir)["gt_pos"][1:T + 1])
+    log(f"ESKF: {T} ticks of a {yaw_rate:.4f} rad/s turn at 1 m/s; card {card_s:.2f} s "
+        f"({1e3 * card_s / T:.3f} ms a tick), CPU {cpu_s:.2f} s (its own process, run meanwhile); card vs CPU "
+        f"max |diff| {diff:.2e} m; RMSE against the ground truth {rmse:.4f} m")
+    if not (diff <= 1e-3 and rmse < 0.1 and np.isfinite(card).all()):
+        raise AssertionError(f"ESKF: card vs CPU {diff:.2e} m, RMSE {rmse:.4f} m")
+    return {"ticks": T, "card_s": card_s, "cpu_s": cpu_s, "card_vs_cpu_m": diff, "rmse_m": rmse}
+
+
 def profile_slice(cfg, scans, wall_ms_per_scan):
     """Device time per scan under torch.profiler over one warm chunk, and
     its share of the unprofiled wall time per scan (the profiler slows the
@@ -762,6 +1053,11 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = kcuda.build(force=True)
     log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(reports)} (nvcc, sm_90a, one process per source)")
+    from lego_loam_torch import native
+
+    t0 = time.perf_counter()
+    native.build(force=True)
+    log(f"build: {time.perf_counter() - t0:.2f} s for native/lego_native.cpp (g++ -O3, no -march=native)")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
@@ -796,6 +1092,18 @@ def main() -> int:
         odometry=dataclasses.replace(lcfg.odometry, odom_prior_mode="init"),
     )
     summary["imu_lap"] = run_imu_lap(icfg, lap_poses, lap_gt, lap_scans, summary["lap"]["ate_odom_m"])
+    gc.collect()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+        t0 = time.perf_counter()
+        cli_truth, cli_scans, seq, bag = cli_fixture(cfg, d)
+        log(f"CLI fixture: {N_CLI} swept scans rendered and written as KITTI and rosbag2 in "
+            f"{time.perf_counter() - t0:.1f} s")
+        summary["cli"] = run_cli(cli_truth, seq, bag, d)
+        summary["checkpoint"] = run_checkpoint(cfg, cli_scans, d)
+        summary["reloc"] = run_reloc(cfg, cli_truth, os.path.join(d, "out_kitti"), bag, d)
+        summary["native"] = run_native(seq, cli_scans, cfg)
+        summary["eskf"] = run_eskf_phase(d)
 
     # K1 times at the main path's shape: one launch per chunk of CHUNK scans
     k1_rows = []

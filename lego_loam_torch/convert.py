@@ -17,6 +17,7 @@ import torch
 
 from . import config as _config
 from .backend import BackendState
+from .eskf import EskfState, Nominal
 from .imu import ImuTrack
 from .posegraph import Factors
 from .types import FeatureCloud, MapState, OdometryState
@@ -91,6 +92,13 @@ def factors_from_reference(factors, device="cuda") -> Factors:
     """The port's `Factors` from a reference factor set (a NamedTuple with
     numpy leaves, or any object with the same fields)."""
     return Factors(**{k: _tensor(getattr(factors, k), device) for k in Factors._fields})
+
+
+def eskf_state_from_reference(state, device="cuda") -> EskfState:
+    """The port's `EskfState` from a reference filter state (NamedTuples with
+    array leaves), so both packages start the filter from the same state."""
+    x = Nominal(**{k: _tensor(getattr(state.x, k), device) for k in Nominal._fields})
+    return EskfState(x=x, **{k: _tensor(getattr(state, k), device) for k in EskfState._fields if k != "x"})
 
 
 def to_numpy(state) -> dict:

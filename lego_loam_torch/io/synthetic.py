@@ -434,3 +434,63 @@ def synth_wheel_odom(poses, cfg, seed=0, scale_err=1.005, yaw_noise=5e-4):
         R_acc = R_acc @ dR
         R_out[i], t_out[i] = R_acc, t_acc
     return R_out, t_out
+
+
+def synth_eskf_fixture(data_dir, n=5000, speed=1.0, steer=0.0, seed=0, dt=0.01, lidar_every=10,
+                       lidar_pos_noise=0.01, lidar_att_noise=0.002, acc_noise=0.01, gyro_noise=0.0015):
+    """Write a consistent ESKF sensor stream into data_dir in the format of
+    the reference's MATLAB fixtures (IMUData, LidarData, EncoderData and
+    GroundTruthData JSON; read back by `io.eskf_data.load`): n IMU ticks of
+    dt at a constant wheel speed (m/s) and steering angle (rad; 0 drives
+    straight along +x, otherwise a constant-radius turn whose yaw rate the
+    Ackermann kinematics give). The IMU reads the body-frame specific force
+    (centripetal + gravity up) and yaw rate; the encoders the wheel counts
+    of the speed, and the whole steering angle as one increment on the
+    first tick; LiDAR poses every lidar_every ticks are ground truth plus
+    Gaussian noise. Returns the ground-truth yaw rate (rad/s)."""
+    import json
+    import os
+
+    import torch
+
+    from ..ackermann import HEADING_ANGLE_COUNT, REAR_WHEEL_COUNT, ackermann_kinematics
+
+    f64 = lambda v: torch.tensor(v, dtype=torch.float64)  # noqa: E731
+    # speed and yaw rate at a unit wheel rate (both scale with it)
+    _, v1, _, w1, _ = ackermann_kinematics(f64(1.0), f64(steer), f64(0.0), f64(0.0), torch.zeros(2, dtype=torch.float64), dt)
+    omega_k = speed / float(v1[0])  # wheel rate of the speed, heading 0
+    yaw_rate = float(w1) * omega_k
+    rs = np.random.RandomState(seed)
+    t = np.arange(n) * dt
+    psi = yaw_rate * t
+    if abs(yaw_rate) > 1e-12:
+        r = speed / yaw_rate
+        pos = np.stack([r * np.sin(psi), r * (1.0 - np.cos(psi)), np.zeros(n)], axis=1)
+    else:
+        pos = np.stack([speed * t, np.zeros(n), np.zeros(n)], axis=1)
+    vel = np.stack([speed * np.cos(psi), speed * np.sin(psi), np.zeros(n)], axis=1)
+    att = np.stack([np.zeros(n), np.zeros(n), psi], axis=1)
+    acc_gt = np.tile([0.0, speed * yaw_rate, 9.81], (n, 1))
+    omega_gt = np.tile([0.0, 0.0, yaw_rate], (n, 1))
+    acc = acc_gt + rs.randn(n, 3) * acc_noise
+    omega = omega_gt + rs.randn(n, 3) * gyro_noise
+    vel_count = np.full(n, omega_k * dt * REAR_WHEEL_COUNT / (2.0 * np.pi))
+    steer_count = np.zeros(n)
+    steer_count[0] = steer * HEADING_ANGLE_COUNT / (2.0 * np.pi)
+    k = np.arange(0, n, lidar_every)
+    lidar_pos = pos[k] + rs.randn(len(k), 3) * lidar_pos_noise
+    lidar_att = att[k] + rs.randn(len(k), 3) * lidar_att_noise
+
+    files = {
+        "IMUData": {"Acc_mea": acc, "Omega_mea": omega, "Acc_GT": acc_gt, "Omega_GT": omega_gt},
+        "LidarData": {"Position_mea": lidar_pos, "Attitude_mea": lidar_att, "Position_GT": pos[k],
+                      "Attitude_GT": att[k]},
+        "EncoderData": {"vel_count_mea": vel_count, "steer_count_mea": steer_count},
+        "GroundTruthData": {"pos": pos, "vel": vel, "att": att},
+    }
+    os.makedirs(data_dir, exist_ok=True)
+    for name, cols in files.items():
+        key = "GTData" if name == "GroundTruthData" else name
+        with open(os.path.join(data_dir, f"{name}.json"), "w") as f:
+            json.dump({key: {c: a.tolist() for c, a in cols.items()}}, f)
+    return yaw_rate

@@ -57,10 +57,17 @@ def voxel_downsample_masked(
 
     vals = torch.stack([xyz[:, 0], xyz[:, 1], xyz[:, 2], *extras], dim=1)[order]
     vals = torch.where(valid_s[:, None], vals, 0.0)
-    sums = torch.zeros((N, vals.shape[1]), dtype=vals.dtype, device=dev)
-    sums.index_add_(0, run.clamp(min=0), vals)
-    cnt = torch.zeros((N,), dtype=vals.dtype, device=dev)
-    cnt.index_add_(0, run.clamp(min=0), valid_s.to(vals.dtype))
+    # Per-voxel sums over the sorted runs. A segmented reduction adds each
+    # voxel's points in order; a float index_add_ on the GPU adds them in
+    # whatever order its atomics land, and the card's runs of the same scans
+    # drifted apart from the first frame on. On the CPU both give the same
+    # bits. The masked tail (sorted last) takes one segment per point after
+    # the voxels': the reduction loops over a segment serially.
+    tail = n_vox + torch.arange(N, device=dev) - valid_s.sum()
+    seg = torch.where(valid_s, run, tail)
+    lengths = torch.zeros(N, dtype=torch.int64, device=dev).index_add_(0, seg, torch.ones_like(seg))
+    sums = torch.segment_reduce(vals, "sum", lengths=lengths, axis=0, unsafe=True)
+    cnt = torch.segment_reduce(valid_s.to(vals.dtype), "sum", lengths=lengths, axis=0, unsafe=True)
     means = sums / torch.clamp(cnt, min=1.0)[:, None]  # row v = voxel v, key order
 
     out_mask = torch.arange(N, device=dev) < n_vox

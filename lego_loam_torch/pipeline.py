@@ -51,6 +51,7 @@ from .ops.projection import grid_from_range_image, host_pack_range_image, projec
 from .ops.segmentation import converged_labels
 from .posegraph import Factors, anchor_stride, reduced_solve
 from .types import OdometryState, ScanGrid
+from .utils.profiling import synchronize
 
 
 @dataclasses.dataclass
@@ -69,14 +70,20 @@ class LegoLoamPipeline:
     ground_scores: optional callable frame_idx -> (ransac_iterations, H*W)
     tensor of uniform draws for the ground NEAR pass. By default they come
     from a `torch.Generator` on the pipeline's device seeded from (seed,
-    frame); tests pass the reference's draw to compare frame by frame."""
+    frame); tests pass the reference's draw to compare frame by frame.
 
-    def __init__(self, cfg: LegoLoamConfig, seed: int = 0, device="cuda", ground_scores=None):
+    profile: `process_scan` waits for the device before and after each
+    mapping step and records the wall time between in
+    diagnostics["mapping_ms"] (written to mapt.txt), as the reference's
+    profile=True does; the default path adds no wait."""
+
+    def __init__(self, cfg: LegoLoamConfig, seed: int = 0, device="cuda", ground_scores=None, profile: bool = False):
         if cfg.mapping.enable_loop_closure:
             anchor_stride(cfg)  # refuses a stride that leaves too many anchors, before any allocation
         self.cfg = cfg
         self.seed = seed
         self.device = torch.device(device)
+        self.profile = profile
         self._ground_scores = ground_scores or self._draw_scores
         self.fstate: OdometryState = init_odometry_state(cfg, self.device)
         self.bstate: BackendState = init_backend_state(cfg, self.device)
@@ -222,13 +229,15 @@ class LegoLoamPipeline:
             pts = pts.to(torch.float32) * cfg.pipeline.feed_quant
         return project_point_cloud(pts, xs["mask"][c], cfg)
 
-    def _frames(self, xs, kf_ts, log_ts, odom_prev=None):
+    def _frames(self, xs, kf_ts, log_ts, odom_prev=None, timed=False):
         """Run the staged scans of `xs` as frames frame_idx, frame_idx+1, ...
         (frame_idx itself is left to the caller). kf_ts: (C,) device tensor
         of the times stored with keyframes; log_ts: the times logged per
         mapped frame (floats, or the same device tensor); odom_prev: the
         wheel-odometry pose (device R, t) before the chunk's first scan,
-        with the prior on. Returns the last frame's poses."""
+        with the prior on; timed: record each mapping step's wall time,
+        the device synchronized before and after it. Returns the last
+        frame's poses."""
         cfg = self.cfg
         C = int(xs["rimg" if "rimg" in xs else "pts"].shape[0])
         f0 = self.frame_idx
@@ -263,7 +272,6 @@ class LegoLoamPipeline:
                 corner_less_sharp=out["map_corner"], surf_less_flat=out["map_surf"]
             )
             o_xyz = deskew_outliers(seg, out["M_R_avg"], out["M_t_avg"], cfg)
-            ds = downsample_current_scan(map_feats, o_xyz, seg.outlier_mask, cfg)
 
             bs = self.bstate
             # Fused pose from the latest *available* map pose (one frame
@@ -272,9 +280,16 @@ class LegoLoamPipeline:
             self._log["odom_t"].append(out["t_world"])
             self._log["fused_t"].append(tf)
             if (f0 + c) % div == 0:
+                if timed:
+                    synchronize(out["t_world"])
+                    t0 = time.perf_counter()
+                ds = downsample_current_scan(map_feats, o_xyz, seg.outlier_mask, cfg)
                 self.bstate, (R_map, t_map), diag = backend_step_ds(
                     bs, *ds, out["R_world"], out["t_world"], kf_ts[c], cfg
                 )
+                if timed:
+                    synchronize(t_map)
+                    self.diagnostics["mapping_ms"].append((time.perf_counter() - t0) * 1e3)
                 self._log["map_R"].append(R_map)
                 self._log["map_t"].append(t_map)
                 self._log["map_time"].append(log_ts[c] if isinstance(log_ts, torch.Tensor) else float(log_ts[c]))
@@ -391,7 +406,7 @@ class LegoLoamPipeline:
             kw["odom"] = (od["R_cur"][None], od["t_cur"][None])
             odom_prev = tuple(torch.from_numpy(np.ascontiguousarray(od[k])).to(self.device) for k in ("R_prev", "t_prev"))
         xs = self.stage_chunk(self._pack_points([points]), timestamps=[t_scan], **kw)
-        out = self._frames(xs, xs["ts"], [t_scan], odom_prev)
+        out = self._frames(xs, xs["ts"], [t_scan], odom_prev, timed=self.profile)
         if self.frame_idx % cfg.mapping.mapping_frequency_divider == 0:
             if (
                 cfg.mapping.enable_loop_closure

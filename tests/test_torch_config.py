@@ -77,6 +77,9 @@ def test_port_never_imports_jax():
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
     code = (
         "import sys, lego_loam_torch.pipeline, lego_loam_torch.convert, chip_smoke; "
+        "import lego_loam_torch.run, lego_loam_torch.checkpoint, lego_loam_torch.relocalize, "
+        "lego_loam_torch.native, lego_loam_torch.eskf, lego_loam_torch.io.kitti, lego_loam_torch.io.rosbag2, "
+        "lego_loam_torch.io.eskf_data; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'lego_loam_tpu')]; "
         "assert not bad, bad"
     )

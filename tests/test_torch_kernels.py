@@ -214,3 +214,74 @@ def test_wrappers_raise_on_bad_cuda_inputs(gpu):
     masks = _cc_masks(1, 4, gpu)
     with pytest.raises(ValueError):
         label_prop(*masks[:4], masks[4][:, :, :100])
+
+
+@pytest.mark.cuda
+def test_native_library_builds_from_source_on_the_card_host(gpu):
+    """g++ builds native/lego_native.cpp here too (the tracked library was
+    built with -march=native and is never loaded); prep_cloud equals its
+    twin."""
+    from lego_loam_torch import native
+
+    native.build(force=True)
+    assert native.available()
+    pts = np.random.RandomState(0).randn(500, 3).astype(np.float32)
+    pts[7, 1] = np.nan
+    for a, b in zip(native.prep_cloud(pts, 600), native.prep_cloud_plain(pts, 600)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cli_runs_on_the_gpu(gpu, tmp_path):
+    """`python -m lego_loam_torch.run` on the card by default: three
+    synthetic scans at full width, both kernels launched."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    r = subprocess.run(
+        [sys.executable, "-m", "lego_loam_torch.run", "--synthetic", "3", "--out", str(tmp_path), "--profile"],
+        cwd=root, capture_output=True, text=True, timeout=600,
+    )
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    prof = json.loads((tmp_path / "profile.json").read_text())
+    assert prof["device"] == torch.cuda.get_device_name(0)
+    assert prof["launches"].get("cc_label_prop", 0) >= 3 and prof["launches"].get("knn_top5", 0) > 0
+    pose = np.loadtxt(tmp_path / "pose.txt")
+    assert pose.shape == (3, 7) and np.isfinite(pose).all()
+
+
+@pytest.mark.cuda
+def test_eskf_on_the_card_matches_the_cpu(gpu, tmp_path):
+    from lego_loam_torch import eskf as E
+    from lego_loam_torch.io import eskf_data
+    from lego_loam_torch.io.synthetic import synth_eskf_fixture
+
+    synth_eskf_fixture(str(tmp_path), n=301, steer=0.05, seed=1)
+    d = eskf_data.load(str(tmp_path))
+    qn = eskf_data.quaternion_noise_scale(d["lidar_rpy_gt"], d["lidar_rpy"])
+    args = [d[k][:300] for k in ("acc_mea", "omega_mea")] + [d["lidar_pos"], d["lidar_rpy"]] + \
+        [d[k][:300] for k in ("vel_count", "steer_count")]
+    out = {}
+    for dev in ("cpu", gpu):
+        s0 = E.init_state(d["gt_pos"][0], d["gt_vel"][0], d["gt_att"][0], device=dev)
+        out[str(dev)] = E.run_eskf(*args, s0, qn)[1]["pos"].cpu().numpy()
+    np.testing.assert_allclose(out[str(gpu)], out["cpu"], atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_voxel_centroids_are_reproducible_on_the_card(gpu):
+    """The voxel sums are a segmented reduction over sorted runs, not float
+    atomics: the same cloud gives the same bits on every call, and the
+    CPU's bits."""
+    from lego_loam_torch.ops.voxel import voxel_downsample_masked
+
+    g = torch.Generator().manual_seed(0)
+    xyz = torch.rand(30000, 3, generator=g) * 100 - 50
+    m = torch.rand(30000, generator=g) > 0.2
+    cpu = voxel_downsample_masked(xyz, m, 0.2, 50.0, radial_pack=True)
+    for _ in range(3):
+        card = voxel_downsample_masked(xyz.to(gpu), m.to(gpu), 0.2, 50.0, radial_pack=True)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
