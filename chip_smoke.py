@@ -66,14 +66,32 @@ Phases, each printing a progress line:
   7f. the native library (g++ from native/lego_native.cpp) against its
      plain twins on the fixture's scans: prep_cloud and the ScanFeeder
      stream bit-equal;
-  7g. the ESKF study: `run_eskf` over a generated 5,000-tick turn on the
+  7g. the ESKF study: `run_eskf` over a generated 3,000-tick turn on the
      card and, in a spawned process meanwhile, on the CPU (positions
      within 1e-3 m, RMSE < 0.1 m), timed;
+  7h. the multi-device solves, in a child process started through
+     `launch.spawn_local(..., n_processes=1)`: rank 0 of a world of one
+     over NCCL (real collectives of size 1). On the lap's final store
+     (saved with `checkpoint.save` at the end of phase 7, 20,480
+     keyframes, its factors assembled by the pipeline's own
+     `_graph_factors`): `sharded_pose_graph_solver` against
+     `solve_pose_graph` (within 1e-4), `schur_pose_graph_solver` ("auto")
+     against `reduced_solve` (within 2e-2 m), and at 64 keyframes of a
+     drifted circle the "dense" Schur solve against `reduced_solve`; one
+     real mapping call's clouds (recorded in the slice's warm-up) through
+     `sharded_map_gn_step` on the card against the same call on the CPU
+     (gloo; within 1e-4 m and 1e-4 rad), K2 launched at `mapping_sharded`
+     and held against its twin; each solver, `reduced_solve` and the step
+     run twice, bit-identical; `build_grid` + `query_knn` over that call's
+     32,768-slot surf submap with its 4,096 queries against K2 (recall
+     > 0.98 where the 5th neighbour lies within the 1 m cell); the NCCL
+     set-up and each solve timed;
   8. torch.profiler over one warm chunk of 4 scans: device time and device
      kernels per scan, the device's busy share, the costliest kernels
      ("not measured" where the profiler cannot trace the card);
   9. times with CUDA events after warm-up: K1 on a 16-scan chunk at each
-     height and K2 at the path's shapes (loop_icp's included), a call (host included) and the
+     height and K2 at the path's shapes (loop_icp's and mapping_sharded's
+     included), a call (host included) and the
      device's time alone (the host's share hidden behind a sleep kernel),
      each beside its twin and its bound (and, for K2, torch.cdist +
      torch.topk, a yardstick the port never calls); the slice's scans/s and
@@ -107,9 +125,9 @@ CHUNK = 16
 N_PRESET = 8
 N_SCAN_RUN = 4  # scans of the per-scan `run`
 # the paths whose launches the kernels line reports, each counted alone
-PATHS = ("slice", "scan_run", "lap", "imu_lap", "cli", "reloc")
+PATHS = ("slice", "scan_run", "lap", "imu_lap", "cli", "reloc", "dist")
 N_CLI = 64  # swept scans of the KITTI / rosbag2 fixture (tools/make_fixtures.py's course)
-ESKF_TICKS = 5000
+ESKF_TICKS = 3000  # 30 s of sensor data (5,000 until the script grew by phase 7h)
 ROOT = Path(__file__).resolve().parent
 K2_SITES = ("odometry_corner", "odometry_surf", "mapping_corner", "mapping_surf")
 # The lap drive: bench.py's flagship configuration over a shorter campus
@@ -386,8 +404,9 @@ def ate(est, gt):
 
 def recording_k2_sites(run, modules=("odometry", "mapping")):
     """Calls `run()` with K2's call sites in the named modules of the port
-    (odometry, mapping, loopclosure) recording a copy of the last call's
-    query, targets and mask at each site; returns {site: (q, t, m, groups)}."""
+    (odometry, mapping, loopclosure, distributed) recording a copy of the
+    last call's query, targets and mask at each site; returns ({site: (q,
+    t, m, groups)}, what run() returned)."""
     import importlib
 
     mods = [importlib.import_module(f"lego_loam_torch.{name}") for name in modules]
@@ -403,11 +422,33 @@ def recording_k2_sites(run, modules=("odometry", "mapping")):
     for mod, fn in zip(mods, saved):
         mod.top5_l2 = recorder(fn)
     try:
-        run()
+        out = run()
     finally:
         for mod, fn in zip(mods, saved):
             mod.top5_l2 = fn
-    return seen
+    return seen, out
+
+
+def recording_map_call(run):
+    """Calls `run()` with the back end's `scan_to_map` recording a copy of
+    its last call's surf cloud and mask, prior pose and submap surf cloud
+    and mask (a real mapping call's inputs); returns them."""
+    from lego_loam_torch import backend
+
+    rec = {}
+    fn = backend.scan_to_map
+
+    def call(c_xyz, c_m, s_xyz, s_m, R0, t0, submap, cfg):
+        rec.update(q=s_xyz.clone(), q_mask=s_m.clone(), R=R0.clone(), t=t0.clone(),
+                   map=submap.surf_xyz.clone(), map_mask=submap.surf_mask.clone())
+        return fn(c_xyz, c_m, s_xyz, s_m, R0, t0, submap, cfg)
+
+    backend.scan_to_map = call
+    try:
+        run()
+    finally:
+        backend.scan_to_map = fn
+    return rec
 
 
 def check_k2_on_path(seen):
@@ -426,7 +467,9 @@ def run_slice(cfg, scans, gt):
 
     # warm-up on other scans: loads the kernels, fills the allocator, and
     # records the clouds of one real call at each of K2's call sites
-    seen = recording_k2_sites(lambda: LegoLoamPipeline(cfg, seed=1).run_chunked(scans[:4], chunk=4))
+    seen, map_call = recording_k2_sites(
+        lambda: recording_map_call(lambda: LegoLoamPipeline(cfg, seed=1).run_chunked(scans[:4], chunk=4))
+    )
     torch.cuda.synchronize()
     path_err = check_k2_on_path(seen)
     torch.cuda.reset_peak_memory_stats()
@@ -457,7 +500,7 @@ def run_slice(cfg, scans, gt):
         raise AssertionError(f"a kernel of the path was not launched: {launches} {sites}")
     return {"scans_per_s": len(scans) / dt, "scans": len(scans), "seconds": dt, "peak_gib": peak,
             "ate_map_m": ate_map, "ate_odom_m": ate_odom, "launches_by_site": sites,
-            "k2_path_max_abs_err": path_err}, launches
+            "k2_path_max_abs_err": path_err}, launches, map_call
 
 
 def run_per_scan(cfg, scans, gt):
@@ -634,12 +677,13 @@ def drive_lap(cfg, gt, scans, name, drive):
                   "rpe_map_m": rpe_map, "rpe_odom_m": rpe_odom, "launches": launches, "launches_by_site": sites}
 
 
-def run_lap(cfg, gt, scans):
+def run_lap(cfg, gt, scans, ckpt):
     """The flagship's loop-closing path: `vlp16()` with loop closure on at
     20,480 keyframes, through `warmup_loop_closure` and
     `run_chunked(chunk=32)`, with `drive_lap`'s checks; then K2 on one
     real loop_icp call's clouds, the attempt's and the solve's times, and
-    `reduced_solve` on the card against the CPU."""
+    `reduced_solve` on the card against the CPU. The final state is saved
+    to `ckpt` (`checkpoint.save`) for phase 7h."""
     log(f"lap: {N_LAP} frames of campus laps of {4 * (LAP_STRAIGHT + LAP_TURN)} (straight {LAP_STRAIGHT}, turn "
         f"{LAP_TURN}): one lap and {N_LAP - 4 * (LAP_STRAIGHT + LAP_TURN)} revisit frames, cut from bench.py's "
         f"1,376 frames of 700-frame laps (straight 150, turn 25)")
@@ -649,7 +693,7 @@ def run_lap(cfg, gt, scans):
     # K2's clouds at loop_icp against its twin, then the attempt's time.
     last = pipe.loop_factors[-1]
     attempt = lambda: pipe._attempt(last.i, last.j, last.j + 1)  # noqa: E731 (no ring wrap: slot = id)
-    seen = recording_k2_sites(attempt, ("loopclosure",))
+    seen, _ = recording_k2_sites(attempt, ("loopclosure",))
     torch.cuda.synchronize()
     q, t, m, g = seen["loop_icp"]
     # 25 overlapping keyframes of the same surfaces: many neighbours lie at
@@ -665,6 +709,11 @@ def run_lap(cfg, gt, scans):
                                              pipe._loop_buf, cfg), reps=5, warmup=1)
     log(f"lap: one attempt {attempt_ms:.3f} ms, one reduced solve {solve_ms:.3f} ms (CUDA events, "
         f"{bs.capacity} keyframes)")
+    from lego_loam_torch import checkpoint
+
+    t0 = time.perf_counter()
+    checkpoint.save(pipe, ckpt)
+    log(f"lap: final state saved for phase 7h in {time.perf_counter() - t0:.2f} s")
     summary.update(attempt_ms=attempt_ms, solve_ms=solve_ms, reduced_solve_check=solve_check,
                    k2_loop_icp_max_abs_err=icp_err)
     return summary, (q, t, m)
@@ -1000,6 +1049,246 @@ def run_eskf_phase(d):
     return {"ticks": T, "card_s": card_s, "cpu_s": cpu_s, "card_vs_cpu_m": diff, "rmse_m": rmse}
 
 
+def lap_config():
+    """bench.py's flagship configuration: `vlp16()` with loop closure on at
+    20,480 keyframes."""
+    from lego_loam_torch.config import vlp16
+
+    cfg = vlp16()
+    return dataclasses.replace(cfg, mapping=dataclasses.replace(cfg.mapping, enable_loop_closure=True,
+                                                                max_keyframes=20480))
+
+
+def drifted_circle(n, yaw_bias_deg=0.2, radius=8.0):
+    """tests/test_posegraph_reduced.py's drifted circle: true poses on a
+    circle, odometry rels from the truth, the estimate integrated with a
+    yaw bias. Returns (R_true, t_true, rel_R, rel_t, R_est, t_est)."""
+    def rz(a):
+        c, s_ = np.cos(a), np.sin(a)
+        return np.array([[c, -s_, 0], [s_, c, 0], [0, 0, 1]], np.float32)
+
+    theta = np.linspace(0, 2 * np.pi, n)
+    t_true = np.stack([np.cos(theta) * radius - radius, np.sin(theta) * radius, 0 * theta], 1).astype(np.float32)
+    R_true = np.stack([rz(a + np.pi / 2) for a in theta])
+    relR = np.tile(np.eye(3, dtype=np.float32), (n, 1, 1))
+    relt = np.zeros((n, 3), np.float32)
+    for i in range(1, n):
+        relR[i] = R_true[i - 1].T @ R_true[i]
+        relt[i] = R_true[i - 1].T @ (t_true[i] - t_true[i - 1])
+    bias = rz(np.deg2rad(yaw_bias_deg))
+    R_est, t_est = np.zeros_like(R_true), np.zeros_like(t_true)
+    R_est[0], t_est[0] = R_true[0], t_true[0]
+    for i in range(1, n):
+        R_est[i] = R_est[i - 1] @ relR[i] @ bias
+        t_est[i] = R_est[i - 1] @ relt[i] + t_est[i - 1]
+    return R_true, t_true, relR, relt, R_est, t_est
+
+
+def _flat(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for v in x for t in _flat(v)]
+
+
+def twice(fn):
+    """fn() twice on the card: (first result, second result, ms of the
+    second call by CUDA events around it, the host's queueing included)."""
+    a = fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    b = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return a, b, start.elapsed_time(end)
+
+
+def same_bits(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(_flat(a), _flat(b), strict=True))
+
+
+def rot_diff(Ra, Rb) -> float:
+    """Largest angle (rad) between corresponding rotations, in float64."""
+    D = Ra.double().transpose(-1, -2) @ Rb.double()
+    w = torch.stack([D[..., 2, 1] - D[..., 1, 2], D[..., 0, 2] - D[..., 2, 0], D[..., 1, 0] - D[..., 0, 1]], -1) / 2
+    c = (D.diagonal(dim1=-2, dim2=-1).sum(-1) - 1) / 2
+    return float(torch.atan2(torch.linalg.norm(w, dim=-1), c).max())
+
+
+def dist_phase(d) -> int:
+    """Phase 7h, run as its own process by `run_dist`: rank 0 of a world of
+    one over NCCL (so the process group never touches the other phases).
+    Reads the lap's saved state and one mapping call's clouds from `d`,
+    writes its results to d/dist.json and the mapping_sharded clouds to
+    d/sharded_clouds.pt. Raises on any failed check."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from lego_loam_torch import checkpoint, launch
+    from lego_loam_torch import cuda as kcuda
+    from lego_loam_torch import distributed as D
+    from lego_loam_torch.ops.hashgrid import build_grid, query_knn
+    from lego_loam_torch.ops.knn import top5_l2
+    from lego_loam_torch.pipeline import LegoLoamPipeline
+    from lego_loam_torch.posegraph import Factors, anchor_stride, reduced_solve, solve_pose_graph
+
+    t0 = time.perf_counter()
+    dev = launch.init_from_args(device="cuda")
+    one = torch.ones(1, device=dev)
+    dist.all_reduce(one)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    world = dist.get_world_size()
+    mesh = D.make_mesh()
+    seg_mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("seg",))
+    log(f"dist: {dist.get_backend()} world of {world} on {dev}, set up in {setup_s:.3f} s (init and a first "
+        f"all_reduce); mesh {tuple(mesh.mesh.shape)} {mesh.mesh_dim_names}")
+
+    cfg = lap_config()
+    t0 = time.perf_counter()
+    pipe = checkpoint.load(LegoLoamPipeline(cfg, device=dev), os.path.join(d, "lap.npz"))
+    bs = pipe.bstate
+    K, n_kf = bs.capacity, int(bs.n_kf)
+    if n_kf > K:
+        raise AssertionError(f"dist: the lap's store wrapped ({n_kf} keyframes in {K} slots)")
+    factors, active, _ = pipe._graph_factors()
+    call = torch.load(os.path.join(d, "map_call.pt"), map_location=dev)
+    S, _ = anchor_stride(cfg)
+    log(f"dist: lap store loaded in {time.perf_counter() - t0:.2f} s: {n_kf} keyframes of {K}, "
+        f"{len(pipe.loop_factors)} loop factors, {int(factors.mask.sum())} valid of {factors.i.shape[0]} factors")
+
+    # The dist path, counted alone: each solve and the map step twice.
+    local = D.shard_rows(factors, mesh)
+    solver = D.sharded_pose_graph_solver(mesh, cfg)
+    schur = D.schur_pose_graph_solver(seg_mesh, cfg, K, stride=S)
+    step = D.sharded_map_gn_step(mesh, cfg)
+    margs = (call["q"], call["q_mask"], D.shard_rows(call["map"], mesh), D.shard_rows(call["map_mask"], mesh),
+             call["R"], call["t"])
+    loop = pipe._loop_buf
+    torch.cuda.synchronize()
+    kcuda.reset_counts()
+    pg_a, pg_b, pg_ms = twice(lambda: solver(bs.kf_R, bs.kf_t, local, active))
+    sc_a, sc_b, sc_ms = twice(lambda: schur(bs.kf_R, bs.kf_t, bs.kf_rel_R, bs.kf_rel_t, bs.n_kf, loop))
+    seen, (st_a, st_b, st_ms) = recording_k2_sites(lambda: twice(lambda: step(*margs)), ("distributed",))
+    torch.cuda.synchronize()
+    launches, sites = dict(kcuda.LAUNCHES), dict(kcuda.SITES)
+    log(f"dist: launches {launches}, by site {sites}")
+    if not sites.get("knn_top5@mapping_sharded", 0) > 0:
+        raise AssertionError(f"dist: K2 was not launched at mapping_sharded: {sites}")
+
+    # 1. the factor-parallel solver against solve_pose_graph
+    one_a, one_b, one_ms = twice(lambda: solve_pose_graph(bs.kf_R, bs.kf_t, factors, active, cfg, gn_iters=3))
+    pg_dR, pg_dt = rot_diff(pg_a[0], one_a[0]), float((pg_a[1] - one_a[1]).abs().max())
+    pg_move = float((pg_a[1] - bs.kf_t).norm(dim=1).max())
+    log(f"dist: sharded_pose_graph_solver ({cfg.distributed.cg_iterations} CG, 3 GN, {K} poses) {pg_ms:.3f} ms, "
+        f"solve_pose_graph {one_ms:.3f} ms; apart by {pg_dt:.2e} m and {pg_dR:.2e} rad; poses moved up to "
+        f"{pg_move:.4f} m")
+    if not (pg_dt <= 1e-4 and pg_dR <= 1e-4):
+        raise AssertionError("dist: the factor-parallel solver disagrees with solve_pose_graph")
+
+    # 2. the Schur solver against reduced_solve, on the lap and at 64 keyframes
+    rd_a, rd_b, rd_ms = twice(lambda: reduced_solve(bs.kf_R, bs.kf_t, bs.kf_rel_R, bs.kf_rel_t, bs.n_kf, loop, cfg))
+    sc_dt = float((sc_a[1] - rd_a[1]).abs().max())
+    log(f"dist: schur_pose_graph_solver (stride {S}, {K // S} anchors, auto) {sc_ms:.3f} ms, reduced_solve "
+        f"{rd_ms:.3f} ms (its gate {'applied' if bool(rd_a[2][0]) else 'refused'}); apart by {sc_dt:.2e} m")
+    if not sc_dt <= 2e-2:
+        raise AssertionError(f"dist: the Schur solver is {sc_dt:.3g} m from reduced_solve")
+    R_true, t_true, relR, relt, R_est, t_est = (torch.from_numpy(a).to(dev) for a in drifted_circle(64))
+    c64 = dataclasses.replace(cfg, mapping=dataclasses.replace(cfg.mapping, max_keyframes=64,
+                                                               posegraph_anchor_stride=8))
+    L = cfg.mapping.max_loop_factors
+    lb = Factors(i=torch.zeros(L, dtype=torch.int32, device=dev), j=torch.zeros(L, dtype=torch.int32, device=dev),
+                 R=torch.eye(3, device=dev).repeat(L, 1, 1), t=torch.zeros(L, 3, device=dev),
+                 info=torch.ones(L, 6, device=dev), mask=torch.zeros(L, dtype=torch.bool, device=dev))
+    lb.i[0], lb.j[0], lb.info[0], lb.mask[0] = 1, 62, 1e4, True
+    lb.R[0], lb.t[0] = R_true[1].T @ R_true[62], R_true[1].T @ (t_true[62] - t_true[1])
+    sd_a, sd_b, _ = twice(lambda: D.schur_pose_graph_solver(seg_mesh, c64, 64, stride=8, reduced="dense")(
+        R_est, t_est, relR, relt, 64, lb))
+    r64 = reduced_solve(R_est, t_est, relR, relt, torch.tensor(64, device=dev), lb, c64)
+    sd_dt = float((sd_a[1] - r64[1]).abs().max())
+    d0 = float((t_est - t_true).norm(dim=1).max())
+    d1 = float((sd_a[1] - t_true).norm(dim=1).max())
+    log(f"dist: Schur dense at 64 keyframes (stride 8): {sd_dt:.2e} m from reduced_solve, drift {d0:.4f} -> "
+        f"{d1:.4f} m")
+    if not (sd_dt <= 2e-2 and d1 < 0.3 * d0):
+        raise AssertionError("dist: the dense Schur solve at 64 keyframes failed")
+
+    # 3. K2 at mapping_sharded against its twin; 4. reruns bit-identical
+    q, tgt, m, _ = seen["mapping_sharded"]
+    _, _, k2_err = knn_case("path clouds at mapping_sharded", q, tgt, m, rel=8 * 2.0 ** -23)
+    reruns = {"sharded_pose_graph_solver": same_bits(pg_a, pg_b), "schur_pose_graph_solver": same_bits(sc_a, sc_b),
+              "schur dense at 64": same_bits(sd_a, sd_b), "solve_pose_graph": same_bits(one_a, one_b),
+              "reduced_solve": same_bits(rd_a, rd_b), "sharded_map_gn_step": same_bits(st_a, st_b)}
+    log(f"dist: reruns bit-identical: {reruns}")
+    if not all(reruns.values()):
+        raise AssertionError(f"dist: a rerun on the card differs: {reruns}")
+
+    # 5. the voxel-hash k-NN against K2 on the same clouds
+    qw = call["q"] @ call["R"].T + call["t"]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    grid = build_grid(call["map"], call["map_mask"], cfg.mapping.nn_valid_dist)
+    gi, gd = query_knn(grid, call["map"], call["map_mask"], qw, call["q_mask"], 5)
+    end.record()
+    ki, kd = top5_l2(qw, call["map"], call["map_mask"])
+    torch.cuda.synchronize()
+    grid_ms = start.elapsed_time(end)
+    gate = call["q_mask"] & (kd[:, 4] < cfg.mapping.nn_valid_dist)
+    tt = (call["map"] * call["map"]).sum(1)
+    tol = 1e-3 + 8 * 2.0 ** -23 * ((qw * qw).sum(1, keepdim=True) + tt[ki.clamp(min=0).long()])
+    recall = float(((gd - kd).abs() <= tol).all(dim=1)[gate].float().mean())
+    masked = bool((~call["map_mask"][gi.clamp(min=0).long()] & (gi >= 0)).any())
+    log(f"dist: build_grid + query_knn ({int(call['map_mask'].sum())} of {call['map'].shape[0]} submap slots, "
+        f"{int(call['q_mask'].sum())} of {qw.shape[0]} queries, {cfg.mapping.nn_valid_dist} m cells) {grid_ms:.3f} "
+        f"ms; recall against K2 {recall:.4f} over the {int(gate.sum())} queries whose 5th neighbour lies within "
+        f"the cell; a masked point returned: {masked}")
+    if not (recall > 0.98 and int(gate.sum()) > 100 and not masked):
+        raise AssertionError(f"dist: the voxel-hash k-NN recall {recall:.4f} over {int(gate.sum())} queries")
+    torch.save(tuple(x.cpu() for x in (q, tgt, m)), os.path.join(d, "sharded_clouds.pt"))
+
+    # the map step on the CPU (gloo), against the card's
+    dist.destroy_process_group()
+    D.init_distributed(f"127.0.0.1:{launch._free_port()}", 1, 0, device="cpu")
+    cpu_R, cpu_t = D.sharded_map_gn_step(D.make_mesh(), cfg)(*(x.cpu() for x in margs))
+    dist.destroy_process_group()
+    st_dt, st_dR = float((st_a[1].cpu() - cpu_t).abs().max()), rot_diff(st_a[0].cpu(), cpu_R)
+    st_move = float((st_a[1] - call["t"]).norm())
+    log(f"dist: sharded_map_gn_step {st_ms:.3f} ms on the card (moved the pose {st_move:.4f} m); card vs CPU "
+        f"{st_dt:.2e} m, {st_dR:.2e} rad")
+    if not (st_dt <= 1e-4 and st_dR <= 1e-4):
+        raise AssertionError("dist: sharded_map_gn_step on the card disagrees with the CPU")
+
+    with open(os.path.join(d, "dist.json"), "w") as fh:
+        json.dump({
+            "world": world, "nccl_setup_s": setup_s, "launches": launches, "launches_by_site": sites,
+            "sharded_pose_graph_ms": pg_ms, "solve_pose_graph_ms": one_ms, "sharded_vs_single_m": pg_dt,
+            "sharded_vs_single_rad": pg_dR, "schur_ms": sc_ms, "reduced_solve_ms": rd_ms,
+            "schur_vs_reduced_m": sc_dt, "schur_dense64_vs_reduced_m": sd_dt, "map_gn_step_ms": st_ms,
+            "map_gn_card_vs_cpu_m": st_dt, "map_gn_card_vs_cpu_rad": st_dR, "k2_max_abs_err": k2_err,
+            "reruns_bit_identical": reruns, "hashgrid_ms": grid_ms, "hashgrid_recall": recall,
+        }, fh)
+    return 0
+
+
+def run_dist(d):
+    """Phase 7h: `dist_phase` in a child process (one NCCL rank through the
+    port's launcher); its output is printed here. Returns (its results,
+    the mapping_sharded call's clouds on the card)."""
+    from lego_loam_torch import launch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = launch.spawn_local(str(ROOT / "chip_smoke.py"), 1, extra_args=("--dist-phase", d), timeout=600)[0]
+    for line in out.splitlines():
+        log(f"  [rank 0] {line}")
+    with open(os.path.join(d, "dist.json")) as fh:
+        res = json.load(fh)
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"dist: phase 7h took {res['phase_s']:.1f} s with its process's start")
+    clouds = torch.load(os.path.join(d, "sharded_clouds.pt"))
+    return res, tuple(x.cuda() for x in clouds)
+
+
 def profile_slice(cfg, scans, wall_ms_per_scan):
     """Device time per scan under torch.profiler over one warm chunk, and
     its share of the unprofiled wall time per scan (the profiler slows the
@@ -1077,16 +1366,18 @@ def main() -> int:
         k1_masks[pcfg.laser.num_vertical_scans], k1_err = masks, max(k1_err, err)
         presets[name] = (pcfg, pgt, pscans)
     shapes = check_k2(dev)
-    summary, launches = run_slice(cfg, scans, gt)
+    summary, launches, map_call = run_slice(cfg, scans, gt)
+    dist_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dist_")
+    dd = dist_tmp.name
+    torch.save(map_call, os.path.join(dd, "map_call.pt"))
     summary["scan_run"] = run_per_scan(cfg, scans, gt)
     summary.update(profile_slice(cfg, scans, 1e3 * summary["seconds"] / summary["scans"]))
     summary["presets"] = {name: drive_preset(name, *args) for name, args in presets.items()}
-    lcfg = dataclasses.replace(cfg, mapping=dataclasses.replace(cfg.mapping, enable_loop_closure=True,
-                                                                max_keyframes=20480))
+    lcfg = lap_config()
     t0 = time.perf_counter()
     lap_poses, lap_gt, lap_scans = lap_course(lcfg)
     log(f"lap: rendered {N_LAP} swept scans in {time.perf_counter() - t0:.1f} s")
-    summary["lap"], icp_clouds = run_lap(lcfg, lap_gt, lap_scans)
+    summary["lap"], icp_clouds = run_lap(lcfg, lap_gt, lap_scans, os.path.join(dd, "lap.npz"))
     icfg = dataclasses.replace(
         lcfg, pipeline=dataclasses.replace(lcfg.pipeline, use_imu_undistortion=True),
         odometry=dataclasses.replace(lcfg.odometry, odom_prior_mode="init"),
@@ -1104,6 +1395,8 @@ def main() -> int:
         summary["reloc"] = run_reloc(cfg, cli_truth, os.path.join(d, "out_kitti"), bag, d)
         summary["native"] = run_native(seq, cli_scans, cfg)
         summary["eskf"] = run_eskf_phase(d)
+    summary["dist"], sharded_clouds = run_dist(dd)
+    dist_tmp.cleanup()
 
     # K1 times at the main path's shape: one launch per chunk of CHUNK scans
     k1_rows = []
@@ -1132,6 +1425,7 @@ def main() -> int:
     }]
     per_shape = []
     shapes["loop icp"] = (*icp_clouds, summary["lap"]["k2_loop_icp_max_abs_err"])
+    shapes["mapping sharded"] = (*sharded_clouds, summary["dist"]["k2_max_abs_err"])
     for name, (q, t, m, err) in shapes.items():
         Q, T = q.shape[0], t.shape[0]
         ms = time_ms(lambda: top5_l2(q, t, m))
@@ -1146,10 +1440,10 @@ def main() -> int:
         bound_by = "operations" if ops >= byts else "bytes"
         bound = max(ops, byts)
         site = "knn_top5@" + name.replace(" ", "_")
-        path = "lap" if name == "loop icp" else "slice"
+        path = {"loop icp": "lap", "mapping sharded": "dist"}.get(name, "slice")
         per_shape.append({"shape": name, "Q": Q, "T": T, "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
                           "library_ms": lib, "bound_ms": bound, "bound_by": bound_by, "bound_share": bound / dev_ms,
-                          "launches": (summary["lap"] if path == "lap" else summary)["launches_by_site"].get(site, 0),
+                          "launches": (summary[path] if path != "slice" else summary)["launches_by_site"].get(site, 0),
                           "launches_in": path, "launches_imu_lap": summary["imu_lap"]["launches_by_site"].get(site, 0),
                           "max_abs_err": err})
         log(f"K2 {name} Q={Q} T={T} ({tm.shape[0]} unmasked): {ms:.4f} ms a call, kernel alone {dev_ms:.4f} ms, "
@@ -1179,4 +1473,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dist_phase(sys.argv[2]) if sys.argv[1:2] == ["--dist-phase"] else main())

@@ -84,8 +84,8 @@ def load(pipe: LegoLoamPipeline, path: str) -> LegoLoamPipeline:
 
         pipe.fstate = unflatten("f", pipe.fstate)
         pipe.bstate = unflatten("b", pipe.bstate)
-    # A sharded keyframe store (the reference's shard_backend_state) waits
-    # for the port of distributed.py (ROADMAP §1 item 7).
+    # Resharding onto a sharded keyframe store (the reference's
+    # shard_backend_state) waits for its port (ROADMAP §1 item 7).
     pipe.frame_idx = int(meta["frame_idx"])
     pipe.loop_factors = [
         LoopFactor(

@@ -19,6 +19,7 @@ from . import config as _config
 from .backend import BackendState
 from .eskf import EskfState, Nominal
 from .imu import ImuTrack
+from .ops.hashgrid import HashGrid
 from .posegraph import Factors
 from .types import FeatureCloud, MapState, OdometryState
 
@@ -92,6 +93,11 @@ def factors_from_reference(factors, device="cuda") -> Factors:
     """The port's `Factors` from a reference factor set (a NamedTuple with
     numpy leaves, or any object with the same fields)."""
     return Factors(**{k: _tensor(getattr(factors, k), device) for k in Factors._fields})
+
+
+def hashgrid_from_reference(grid, device="cuda") -> HashGrid:
+    """The port's `HashGrid` from a reference grid (its table as numpy)."""
+    return HashGrid(table=_tensor(grid.table, device), cell=float(grid.cell))
 
 
 def eskf_state_from_reference(state, device="cuda") -> EskfState:

@@ -18,7 +18,7 @@ import torch
 
 from .config import LegoLoamConfig
 from .math import se3
-from .math.linalg3 import eigvals3x3_components, eigvec_extreme_components
+from .math.linalg3 import eigh3x3, eigvals3x3_components, eigvec_extreme_components
 from .ops.knn import top5_l2
 from .ops.voxel import voxel_downsample_masked
 from .types import MapState
@@ -122,6 +122,19 @@ def _surf_fit(q, q_mask, idx, submap: MapState, cfg: LegoLoamConfig):
     d_off = -(gx * c[:, 0] + gy * c[:, 1] + gz * c[:, 2])
     fit = (gx[:, None] * nx + gy[:, None] * ny + gz[:, None] * nz + d_off[:, None]).abs()
     return gx, gy, gz, d_off, ok & (fit < cfg.mapping.plane_valid_dist).all(dim=1)
+
+
+def plane_fit_pca(nbr):
+    """Total-least-squares plane through (..., K, 3) neighbours: the unit
+    normal n and offset d with n.p + d = 0, from the eigenvector of the
+    covariance's smallest eigenvalue. Finite for degenerate neighbour sets,
+    and defined for planes through the origin (the reference's `A x = -1`
+    fit, mapOptmization.cpp:1390-1402, is not)."""
+    c = nbr.mean(dim=-2)
+    d = nbr - c[..., None, :]
+    _, evecs = eigh3x3(torch.einsum("...ki,...kj->...ij", d, d))
+    n = evecs[..., :, 0]
+    return n, -(n * c).sum(dim=-1)
 
 
 def _surf_residuals(q, fit, rn):

@@ -24,9 +24,15 @@ prior. The previous odometry pose is carried on the host (`_last_odom`),
 shared by the chunk and the per-scan paths as in the reference.
 `publish_global_map` assembles the global map on the host every
 `global_map_every_n_frames` mapped frames; `save_artifacts` writes the
-reference's run artifacts. The reference's mesh-sharded solves run only
-with more than one device; on one device both packages take the paths
-here.
+reference's run artifacts.
+
+In a process group of more than one rank (`launch.init_from_args`), with
+`use_sharded_posegraph`, every graph solve is the whole-graph GN of
+`distributed.sharded_pose_graph_solver` over factors assembled on the host,
+each rank solving with its row block of them, as the reference does with
+more than one device; its cost gate reads the result back. A sharded
+keyframe store (`shard_backend`) is not ported yet and is refused there.
+On one rank both packages take the anchor-segment solve.
 """
 
 from __future__ import annotations
@@ -37,9 +43,11 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .backend import BackendState, backend_step_ds, downsample_current_scan, init_backend_state
 from .config import LegoLoamConfig
+from .distributed import make_mesh, shard_rows, sharded_pose_graph_solver
 from .frontend import deskew_outliers, frontend_solve, imu_attitude, init_odometry_state, segment_features
 from .fusion import fuse_pose
 from .imu import integrate_imu, odom_prior_motion
@@ -49,7 +57,7 @@ from .math import se3
 from .ops.ground import apply_ground, ransac_scores
 from .ops.projection import grid_from_range_image, host_pack_range_image, project_point_cloud
 from .ops.segmentation import converged_labels
-from .posegraph import Factors, anchor_stride, reduced_solve
+from .posegraph import Factors, anchor_stride, graph_cost, reduced_solve
 from .types import OdometryState, ScanGrid
 from .utils.profiling import synchronize
 
@@ -80,6 +88,19 @@ class LegoLoamPipeline:
     def __init__(self, cfg: LegoLoamConfig, seed: int = 0, device="cuda", ground_scores=None, profile: bool = False):
         if cfg.mapping.enable_loop_closure:
             anchor_stride(cfg)  # refuses a stride that leaves too many anchors, before any allocation
+        # More than one rank: the reference's mesh (`len(jax.devices()) > 1`).
+        self._mesh = None
+        self._solve_graph_sharded = None
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1 and (
+            cfg.distributed.use_sharded_posegraph or cfg.distributed.shard_backend
+        ):
+            if cfg.distributed.shard_backend:
+                raise ValueError(
+                    f"shard_backend over {dist.get_world_size()} ranks: the sharded keyframe store is not ported "
+                    "yet (ROADMAP §1 item 7); set cfg.distributed.shard_backend=False"
+                )
+            self._mesh = make_mesh()
+            self._solve_graph_sharded = sharded_pose_graph_solver(self._mesh, cfg)
         self.cfg = cfg
         self.seed = seed
         self.device = torch.device(device)
@@ -614,7 +635,7 @@ class LegoLoamPipeline:
         self._loopinfo_probe()
         self._attempt(0, 0, 1)
         self._append_loop(0, 0, 0, torch.eye(3, device=self.device), torch.zeros(3, device=self.device), 1.0, False)
-        self._dispatch_solve(None)
+        self._solve(None)
         self._pickup_solve()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -701,7 +722,15 @@ class LegoLoamPipeline:
         self._loop_cooldown_until = self.frame_idx + m.loop_accept_cooldown
         if len(self.loop_factors) % max(m.loop_solve_every_accepts, 1) and not draining:
             return  # factor accumulated; solve at the Nth accept / drain
-        self._dispatch_solve(diag)
+        self._solve(diag)
+
+    def _solve(self, diag_ref):
+        """The graph solve: over several ranks the sharded whole-graph solve,
+        applied at once; else the anchor-segment solve, queued."""
+        if self._solve_graph_sharded is not None:
+            self._optimize_graph_sharded()
+        else:
+            self._dispatch_solve(diag_ref)
 
     def _dispatch_solve(self, diag_ref):
         """Queue the reduced anchor-segment solve. Its cost gate selects on
@@ -755,13 +784,94 @@ class LegoLoamPipeline:
         while self._linfo_q:
             self._try_loop_closure(draining=True)
         if len(self.loop_factors) > self._solved_at:
-            self._dispatch_solve(self.loop_diag[-1] if self.loop_diag else None)
+            self._solve(self.loop_diag[-1] if self.loop_diag else None)
         self._pickup_solve()
 
     def _optimize_graph(self):
         """Whole-graph correction on demand (tests, a reloaded factor
         list): rebuild the device buffer from the host mirror, solve, and
-        read the diagnostic."""
-        self._sync_loop_buf()
-        self._dispatch_solve(self.loop_diag[-1] if self.loop_diag else None)
+        read the diagnostic; over more than one rank, the sharded solve."""
+        if self._solve_graph_sharded is None:
+            self._sync_loop_buf()
+        self._solve(self.loop_diag[-1] if self.loop_diag else None)
         self._pickup_solve()
+
+    def _graph_factors(self):
+        """The whole keyframe graph as factors over ring slots, assembled on
+        the host as the reference's sharded branch assembles it: K - 1
+        chain rows, the pair (l-1, l) in append order measured by the
+        younger keyframe's kf_rel (masked past the resident chain), then
+        `max_loop_factors` rows of the newest loop factors whose keyframes
+        are still resident (masked padding). Returns (factors, active (K,)
+        bool, the newest keyframe's slot)."""
+        bs, m, dev = self.bstate, self.cfg.mapping, self.device
+        K = bs.capacity
+        n_kf = int(bs.n_kf)
+        slots = bs.ordered_slots()
+        A = len(slots)
+        base = n_kf - A  # absolute id of the oldest resident keyframe
+        ci = np.zeros(K - 1, np.int32)
+        cj = np.zeros(K - 1, np.int32)
+        cmask = np.zeros(K - 1, bool)
+        if A >= 2:
+            ci[: A - 1], cj[: A - 1], cmask[: A - 1] = slots[:-1], slots[1:], True
+        cap = m.max_loop_factors
+        live = [f for f in self.loop_factors if f.i >= base and f.j >= base][-cap:]
+        li = np.zeros(cap, np.int32)
+        lj = np.zeros(cap, np.int32)
+        lR = np.tile(np.eye(3, dtype=np.float32), (cap, 1, 1))
+        lt = np.zeros((cap, 3), np.float32)
+        info = np.zeros((K - 1 + cap, 6), np.float32)
+        info[: K - 1] = [1.0 / m.chain_rot_var] * 3 + [1.0 / m.chain_trans_var] * 3
+        lmask = np.zeros(cap, bool)
+        for k, f in enumerate(live):
+            li[k], lj[k], lR[k], lt[k] = slots[f.i - base], slots[f.j - base], f.R, f.t
+            info[K - 1 + k] = self._loop_info(f.fitness)
+            lmask[k] = True
+
+        def up(a):
+            return torch.from_numpy(a).to(dev)
+
+        younger = up(cj).long()
+        factors = Factors(
+            i=up(np.concatenate([ci, li])), j=up(np.concatenate([cj, lj])),
+            R=torch.cat([bs.kf_rel_R.index_select(0, younger), up(lR)]),
+            t=torch.cat([bs.kf_rel_t.index_select(0, younger), up(lt)]),
+            info=up(info), mask=up(np.concatenate([cmask, lmask])),
+        )
+        active = torch.arange(K, device=dev) < n_kf
+        return factors, active, int(slots[-1]) if A else 0
+
+    def _optimize_graph_sharded(self):
+        """Whole-graph GN through `sharded_pose_graph_solver`: the factors
+        of `_graph_factors`, padded to a multiple of the world size (masked
+        identity rows), each rank solving with its row block. Applied only
+        where the graph's weighted cost falls and stays finite (read back
+        here); then the rotations are re-orthonormalized, the map pose
+        becomes the newest keyframe's, and the submap cache is invalidated."""
+        self._solved_at = len(self.loop_factors)
+        factors, active, newest = self._graph_factors()
+        pad = (-factors.i.shape[0]) % self._mesh.size()
+        if pad:
+            eye = torch.eye(3, device=self.device).expand(pad, 3, 3)
+            factors = Factors(*(torch.cat([x, eye if x.dim() == 3 else x.new_zeros((pad,) + x.shape[1:])])
+                                for x in factors))
+        local = shard_rows(factors, self._mesh)
+        bs = self.bstate
+        newR, newt = self._solve_graph_sharded(bs.kf_R, bs.kf_t, local, active)
+        moved = torch.max(torch.where(active, torch.linalg.norm(newt - bs.kf_t, dim=1), 0.0))
+        c0, c1, moved = torch.stack([graph_cost(bs.kf_R, bs.kf_t, factors), graph_cost(newR, newt, factors),
+                                     moved]).tolist()
+        ok = bool(np.isfinite(c1)) and c1 < c0
+        if self.loop_diag:
+            self.loop_diag[-1].update(graph_cost=[c0, c1], graph_max_move=moved, graph_accepted=ok)
+        if not ok:
+            return
+        newR = se3.orthonormalize(newR)
+        bs.kf_R.copy_(newR)
+        bs.kf_t.copy_(newt)
+        self.bstate = bs.replace(
+            R_map=newR[newest].clone(), t_map=newt[newest].clone(),
+            submap_center=torch.full_like(bs.submap_center, 1e9),
+            submap_n_kf=torch.full_like(bs.submap_n_kf, -1),
+        )

@@ -16,6 +16,8 @@ odometry into one factor, solves the small anchor graph exactly (dense
 normal equations, one LU per GN iteration) and blends the anchors'
 corrections back over the segments. Every loop is a fixed count and every
 solve an `_ex` variant, so nothing here reads a value back to the host.
+Per-pose sums go through `segment_sum` in a fixed order, so a solve on the
+card gives the same bits on every run.
 """
 
 from __future__ import annotations
@@ -80,8 +82,50 @@ def anchor_stride(cfg: LegoLoamConfig) -> tuple[int, int]:
     return S, A
 
 
-def _segment_sum(x, index, n):
-    return torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=x.device).index_add_(0, index, x)
+class Segments(NamedTuple):
+    """A fixed order in which to sum rows into segments: `order` sorts the
+    rows by segment (stably, so rows of one segment keep their order) and
+    `lengths` counts the rows of each segment."""
+
+    order: torch.Tensor  # (M,) int64
+    lengths: torch.Tensor  # (n + masked rows,) int64
+    n: int  # segments returned
+
+
+def segments(index, n: int, valid=None) -> Segments:
+    """The summation order of rows with segment ids `index` (M,) into n
+    segments. Rows where `valid` is False take one segment each after the
+    n returned ones, so no segment collects the padding (the segmented
+    reduction runs each segment serially). Lengths come from an integer
+    index_add_, exact in any order."""
+    M = index.shape[0]
+    key = index.long()
+    n_seg = n
+    if valid is not None:
+        key = torch.where(valid, key, n + torch.arange(M, device=key.device))
+        n_seg = n + M
+    order = torch.argsort(key, stable=True)
+    lengths = torch.zeros(n_seg, dtype=torch.int64, device=key.device).index_add_(0, key, torch.ones_like(key))
+    return Segments(order, lengths, n)
+
+
+def segment_sum(x, seg: Segments):
+    """(M, ...) rows summed per segment -> (n, ...), each segment's rows
+    added in their order.
+
+    A float index_add_ on the GPU adds with atomics in whatever order they
+    land, so the card's solves would differ from run to run; the segmented
+    reduction over the sorted rows is bit-identical from run to run, and on
+    the CPU bit-equal to index_add_ over the same rows (which also adds
+    them in order). Masked rows carry zero terms there and are left out."""
+    return torch.segment_reduce(x[seg.order], "sum", lengths=seg.lengths, axis=0, unsafe=True)[: seg.n]
+
+
+def factor_segments(f: "Factors", n_poses: int) -> Segments:
+    """The order of the i-side then the j-side terms of every factor into
+    the poses: the i-side before the j-side, as two index_add_ calls add
+    them."""
+    return segments(torch.cat([f.i, f.j]), n_poses, torch.cat([f.mask, f.mask]))
 
 
 def factor_residuals(poses_R, poses_t, f: Factors):
@@ -104,29 +148,32 @@ def _weights(f: Factors):
     return f.info * f.mask[:, None].to(f.info.dtype)
 
 
-def _gradient(Ji, Jj, r, f: Factors, n_poses):
+def gradient(Ji, Jj, r, f: Factors, seg: Segments):
+    """g = sum_f J_f^T Ω r_f per pose: (N, 6)."""
     wr = r * _weights(f)
-    g = _segment_sum(torch.einsum("fba,fb->fa", Ji, wr), f.i.long(), n_poses)
-    return g.index_add_(0, f.j.long(), torch.einsum("fba,fb->fa", Jj, wr))
+    return segment_sum(torch.cat([torch.einsum("fba,fb->fa", Ji, wr), torch.einsum("fba,fb->fa", Jj, wr)]), seg)
 
 
-def _matvec(x, Ji, Jj, f: Factors, n_poses, prior_w):
-    """y = (H + prior) x with H = sum_f J_f^T Ω J_f, factor-wise."""
+def hessian_times(x, Ji, Jj, f: Factors, seg: Segments):
+    """H x with H = sum_f J_f^T Ω J_f, factor-wise (no prior): (N, 6)."""
     i, j = f.i.long(), f.j.long()
     a = torch.einsum("fab,fb->fa", Ji, x[i]) + torch.einsum("fab,fb->fa", Jj, x[j])
     a = a * _weights(f)
-    y = _segment_sum(torch.einsum("fba,fb->fa", Ji, a), i, n_poses)
-    y = y.index_add_(0, j, torch.einsum("fba,fb->fa", Jj, a))
-    y[0] += prior_w * x[0]  # gauge prior on pose 0
-    return y
+    return segment_sum(torch.cat([torch.einsum("fba,fb->fa", Ji, a), torch.einsum("fba,fb->fa", Jj, a)]), seg)
 
 
-def _block_precond(Ji, Jj, f: Factors, n_poses, prior_w):
-    """Block-diagonal (6x6 per pose) preconditioner blocks, inverted."""
+def hessian_blocks(Ji, Jj, f: Factors, seg: Segments):
+    """The 6x6 diagonal blocks of H (no prior): (N, 6, 6)."""
     w = _weights(f)
-    eye6 = torch.eye(6, dtype=Ji.dtype, device=Ji.device)
-    B = _segment_sum(torch.einsum("fba,fb,fbc->fac", Ji, w, Ji), f.i.long(), n_poses)
-    B = B.index_add_(0, f.j.long(), torch.einsum("fba,fb,fbc->fac", Jj, w, Jj))
+    return segment_sum(torch.cat([
+        torch.einsum("fba,fb,fbc->fac", Ji, w, Ji), torch.einsum("fba,fb,fbc->fac", Jj, w, Jj),
+    ]), seg)
+
+
+def precond_inverse(B, prior_w):
+    """The inverted block-Jacobi preconditioner from H's diagonal blocks
+    (the gauge prior added on pose 0)."""
+    eye6 = torch.eye(6, dtype=B.dtype, device=B.device)
     B[0] += prior_w * eye6
     return torch.linalg.inv_ex(B + 1e-6 * eye6[None]).inverse
 
@@ -156,15 +203,18 @@ def solve_pose_graph(
     corrected (poses_R, poses_t)."""
     N = poses_R.shape[0]
     active = n_poses_mask[:, None].to(poses_t.dtype)
+    seg = factor_segments(factors, N)
     R, t = poses_R, poses_t
     for _ in range(gn_iters):
         r = factor_residuals(R, t, factors)
         Ji, Jj = factor_jacobians(R, t, factors, r)
-        b = -_gradient(Ji, Jj, r, factors, N) * active
-        Minv = _block_precond(Ji, Jj, factors, N, prior_w)
+        b = -gradient(Ji, Jj, r, factors, seg) * active
+        Minv = precond_inverse(hessian_blocks(Ji, Jj, factors, seg), prior_w)
 
         def mv(v):
-            return _matvec(v, Ji, Jj, factors, N, prior_w) * active
+            y = hessian_times(v, Ji, Jj, factors, seg)
+            y[0] += prior_w * v[0]  # gauge prior on pose 0
+            return y * active
 
         def apply_M(v):
             return torch.einsum("nab,nb->na", Minv, v) * active
@@ -212,18 +262,20 @@ def solve_dense_gn(
     diag_w[0] = prior_w
     diag = torch.diag_embed(diag_w.repeat_interleave(6))
     i, j = factors.i.long(), factors.j.long()
+    seg = factor_segments(factors, N)
+    # H block-wise: four 6x6 blocks per factor summed into a flat (N*N, 6, 6)
+    # block grid (ii, ij, ji, jj, each over all factors), then laid out dense.
+    m = factors.mask
+    hseg = segments(torch.cat([i * N + i, i * N + j, j * N + i, j * N + j]), N * N, torch.cat([m, m, m, m]))
     R, t = poses_R, poses_t
     for _ in range(gn_iters):
         r = factor_residuals(R, t, factors)
         Ji, Jj = factor_jacobians(R, t, factors, r)
         w = _weights(factors)
-        g = _gradient(Ji, Jj, r, factors, N)
-        # H block-wise: four 6x6 blocks per factor scattered into a flat
-        # (N*N, 6, 6) block grid, then laid out dense.
-        H = torch.zeros((N * N, 6, 6), dtype=dt, device=dev)
-        for a, Ja in ((i, Ji), (j, Jj)):
-            for b, Jb in ((i, Ji), (j, Jj)):
-                H.index_add_(0, a * N + b, torch.einsum("fba,fb,fbc->fac", Ja, w, Jb))
+        g = gradient(Ji, Jj, r, factors, seg)
+        H = segment_sum(torch.cat([
+            torch.einsum("fba,fb,fbc->fac", Ja, w, Jb) for Ja in (Ji, Jj) for Jb in (Ji, Jj)
+        ]), hseg)
         H = H.reshape(N, N, 6, 6).permute(0, 2, 1, 3).reshape(6 * N, 6 * N) + diag
         x = -torch.linalg.solve_ex(H, g.reshape(-1, 1)).result.reshape(N, 6)
         # Per-pose trust region: a mis-verified loop factor must not launch

@@ -65,8 +65,8 @@ def parse_args(argv=None):
                    help="run on the GPU (default) or, when asked, on the CPU")
     args = p.parse_args(argv)
     if args.coordinator or args.num_processes is not None or args.process_id is not None:
-        p.error("multi-process runs (--coordinator/--num-processes/--process-id) wait for the port of "
-                "launch.py and distributed.py (ROADMAP §1 item 7)")
+        p.error("multi-process runs (--coordinator/--num-processes/--process-id) wait for the sharded keyframe "
+                "store that the default config asks for (shard_backend, ROADMAP §1 item 7)")
     if args.device == "cuda" and not torch.cuda.is_available():
         p.error("no CUDA device is visible; pass --device cpu to run on the CPU")
     if not (args.kitti or args.rosbag or args.synthetic):

@@ -206,8 +206,9 @@ def test_rosbag_imu_and_odometry_streams(tmp_path):
 
 
 def test_cli_refusals(tmp_path, monkeypatch, capsys):
-    """Multi-process flags wait for launch.py (ROADMAP §1 item 7); without
-    a GPU the default device is refused rather than replaced by the CPU."""
+    """Multi-process flags wait for the sharded keyframe store (ROADMAP §1
+    item 7); without a GPU the default device is refused rather than
+    replaced by the CPU."""
     for argv in (["--coordinator", "localhost:1234"], ["--num-processes", "2"], ["--process-id", "0"]):
         with pytest.raises(SystemExit) as e:
             run.main(["--device", "cpu", "--synthetic", "1", "--out", str(tmp_path), *argv])

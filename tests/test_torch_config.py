@@ -68,9 +68,10 @@ def _imports(path):
 
 
 def test_port_never_imports_jax():
-    """Neither the port nor chip_smoke.py imports jax, flax or lego_loam_tpu,
-    in the source or at run time."""
-    files = sorted((ROOT / "lego_loam_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """Neither the port, chip_smoke.py nor the rank programs of the
+    multi-rank tests (tests/_torch_ranks.py) import jax, flax or
+    lego_loam_tpu, in the source or at run time."""
+    files = sorted((ROOT / "lego_loam_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_ranks.py"]
     assert len(files) > 15
     for f in files:
         bad = [m for m in _imports(f) if m.split(".")[0] in ("jax", "flax", "lego_loam_tpu")]
@@ -79,7 +80,8 @@ def test_port_never_imports_jax():
         "import sys, lego_loam_torch.pipeline, lego_loam_torch.convert, chip_smoke; "
         "import lego_loam_torch.run, lego_loam_torch.checkpoint, lego_loam_torch.relocalize, "
         "lego_loam_torch.native, lego_loam_torch.eskf, lego_loam_torch.io.kitti, lego_loam_torch.io.rosbag2, "
-        "lego_loam_torch.io.eskf_data; "
+        "lego_loam_torch.io.eskf_data, lego_loam_torch.distributed, lego_loam_torch.launch, "
+        "lego_loam_torch.ops.hashgrid; sys.path.insert(0, 'tests'); import _torch_ranks; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'lego_loam_tpu')]; "
         "assert not bad, bad"
     )

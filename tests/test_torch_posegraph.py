@@ -221,3 +221,54 @@ def test_default_stride_accepted():
     """The default 20,480 keyframes at stride 32: 640 anchors (only the
     check runs; no store is allocated)."""
     assert PG.anchor_stride(_loop_cfg(20480)) == (32, 640)
+
+
+def _random_factor_set(N, seed):
+    """Factors over N poses laid out as the pipeline pads them: N - 1 chain
+    slots (the resident chain valid, the rest masked at pose 0) and 128 loop
+    slots (some valid, random endpoints within the chain, the rest masked),
+    with random per-factor terms, zero (of either sign) where masked."""
+    rs = np.random.RandomState(seed)
+    live = rs.randint(2, N + 1)
+    ci, cj = np.zeros(N - 1, np.int64), np.zeros(N - 1, np.int64)
+    ci[: live - 1] = np.arange(live - 1)
+    cj[: live - 1] = np.arange(1, live)
+    n_loop = rs.randint(1, 129)
+    li, lj = np.zeros(128, np.int64), np.zeros(128, np.int64)
+    li[:n_loop], lj[:n_loop] = rs.randint(0, live, n_loop), rs.randint(0, live, n_loop)
+    mask = np.concatenate([np.arange(N - 1) < live - 1, np.arange(128) < n_loop])
+    f = PG.Factors(i=T(np.concatenate([ci, li]).astype(np.int32)), j=T(np.concatenate([cj, lj]).astype(np.int32)),
+                   R=None, t=None, info=None, mask=T(mask))
+
+    def terms(*shape):
+        x = (rs.randn(len(mask), *shape) * 10.0 ** rs.uniform(-3, 3, (len(mask),) + (1,) * len(shape)))
+        return T(x.astype(np.float32)) * f.mask.reshape(-1, *(1,) * len(shape))  # 0 * negative = -0
+
+    return f, terms
+
+
+@pytest.mark.parametrize("N", [64, 640, 2048, 20480])
+def test_segment_sum_equals_index_add(N):
+    """The pose graph's per-pose sums (a stable sort, then segment_reduce)
+    equal the float index_add_ they replace, bit for bit on the CPU: the
+    i-side terms, then the j-side terms, masked padding included; and the
+    four 6x6 blocks a factor adds to the dense normal equations."""
+    f, terms = _random_factor_set(N, seed=N)
+    i, j = f.i.long(), f.j.long()
+    seg = PG.factor_segments(f, N)
+    for shape in ((6,), (6, 6)):
+        gi, gj = terms(*shape), terms(*shape)
+        old = torch.zeros((N,) + shape).index_add_(0, i, gi).index_add_(0, j, gj)
+        new = PG.segment_sum(torch.cat([gi, gj]), seg)
+        assert torch.equal(new, old) and (new.view(torch.int32) == old.view(torch.int32)).all()
+    if N <= 640:
+        m = f.mask
+        hseg = PG.segments(torch.cat([i * N + i, i * N + j, j * N + i, j * N + j]), N * N, torch.cat([m, m, m, m]))
+        blocks = [terms(6, 6) for _ in range(4)]
+        old = torch.zeros((N * N, 6, 6))
+        for (a, b), blk in zip(((i, i), (i, j), (j, i), (j, j)), blocks):
+            old.index_add_(0, a * N + b, blk)
+        new = PG.segment_sum(torch.cat(blocks), hseg)
+        assert (new.view(torch.int32) == old.view(torch.int32)).all()
+    # no segment collects the masked padding: each masked row is its own
+    assert int(seg.lengths[N:].max()) <= 1
