@@ -86,6 +86,19 @@ Phases, each printing a progress line:
      32,768-slot surf submap with its 4,096 queries against K2 (recall
      > 0.98 where the 5th neighbour lies within the 1 m cell); the NCCL
      set-up and each solve timed;
+  7i. the sharded keyframe store, in phase 7h's NCCL rank (world size 1):
+     the slice's 32 scans through `run_chunked` with the store laid out in
+     row blocks right after construction (`distributed.
+     shard_backend_state`): map, odometry and fused poses and map attitudes
+     bit-identical to phase 5's unsharded run, map ATE < 0.1 m, K2 launched
+     at mapping_corner and mapping_surf, the state's bytes on the rank
+     printed; the lap's saved state loaded into a sharded and an unsharded
+     pipeline, each continued over the lap course's next 64 frames
+     (448-511, revisiting): at least one attempt on the sharded store,
+     final keyframe poses bit-identical, K2 launched at loop_icp; the CLI
+     joining a group of one (--coordinator, --num-processes 1,
+     --process-id 0) over 7c's KITTI fixture: exit 0 and 7c's pose.txt;
+     each part timed;
   8. torch.profiler over one warm chunk of 4 scans: device time and device
      kernels per scan, the device's busy share, the costliest kernels
      ("not measured" where the profiler cannot trace the card);
@@ -94,7 +107,8 @@ Phases, each printing a progress line:
      included), a call (host included) and the
      device's time alone (the host's share hidden behind a sleep kernel),
      each beside its twin and its bound (and, for K2, torch.cdist +
-     torch.topk, a yardstick the port never calls); the slice's scans/s and
+     torch.topk, a yardstick the port never calls), and K2 at the mapping
+     sites' row-block shapes over 2 and 4 ranks; the slice's scans/s and
      peak memory.
 
 Prints one JSON line of kernel records, then `{"ok": true, ...}` last.
@@ -104,6 +118,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -125,7 +140,7 @@ CHUNK = 16
 N_PRESET = 8
 N_SCAN_RUN = 4  # scans of the per-scan `run`
 # the paths whose launches the kernels line reports, each counted alone
-PATHS = ("slice", "scan_run", "lap", "imu_lap", "cli", "reloc", "dist")
+PATHS = ("slice", "scan_run", "lap", "imu_lap", "cli", "reloc", "dist", "shard")
 N_CLI = 64  # swept scans of the KITTI / rosbag2 fixture (tools/make_fixtures.py's course)
 ESKF_TICKS = 3000  # 30 s of sensor data (5,000 until the script grew by phase 7h)
 ROOT = Path(__file__).resolve().parent
@@ -134,6 +149,7 @@ K2_SITES = ("odometry_corner", "odometry_surf", "mapping_corner", "mapping_surf"
 # lap (340 frames, 34 s, longer than the 30 s loop_time_gap), cut after one
 # lap and 108 revisit frames: 14 chunks of 32.
 LAP_STRAIGHT, LAP_TURN, N_LAP, LAP_CHUNK = 70, 15, 448, 32
+N_CONT = 64  # phase 7i: the lap's frames 448-511, continued from its saved state
 
 
 def log(msg):
@@ -498,9 +514,11 @@ def run_slice(cfg, scans, gt):
         raise AssertionError(f"map ATE {ate_map:.4f} m >= 0.1 m")
     if not (launches.get("cc_label_prop", 0) > 0 and all(sites.get(f"knn_top5@{k}", 0) > 0 for k in K2_SITES)):
         raise AssertionError(f"a kernel of the path was not launched: {launches} {sites}")
+    poses = {k: np.asarray(out[k]) for k in ("map_positions", "odom_positions", "fused_positions")}
+    poses["map_rpys"] = np.asarray(pipe.trajectory["rpys"])
     return {"scans_per_s": len(scans) / dt, "scans": len(scans), "seconds": dt, "peak_gib": peak,
             "ate_map_m": ate_map, "ate_odom_m": ate_odom, "launches_by_site": sites,
-            "k2_path_max_abs_err": path_err}, launches, map_call
+            "k2_path_max_abs_err": path_err}, launches, map_call, poses
 
 
 def run_per_scan(cfg, scans, gt):
@@ -1245,6 +1263,10 @@ def dist_phase(d) -> int:
     if not (recall > 0.98 and int(gate.sum()) > 100 and not masked):
         raise AssertionError(f"dist: the voxel-hash k-NN recall {recall:.4f} over {int(gate.sum())} queries")
     torch.save(tuple(x.cpu() for x in (q, tgt, m)), os.path.join(d, "sharded_clouds.pt"))
+    del pipe, bs, loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    shard = shard_phase(d, mesh)
 
     # the map step on the CPU (gloo), against the card's
     dist.destroy_process_group()
@@ -1265,9 +1287,136 @@ def dist_phase(d) -> int:
             "sharded_vs_single_rad": pg_dR, "schur_ms": sc_ms, "reduced_solve_ms": rd_ms,
             "schur_vs_reduced_m": sc_dt, "schur_dense64_vs_reduced_m": sd_dt, "map_gn_step_ms": st_ms,
             "map_gn_card_vs_cpu_m": st_dt, "map_gn_card_vs_cpu_rad": st_dR, "k2_max_abs_err": k2_err,
-            "reruns_bit_identical": reruns, "hashgrid_ms": grid_ms, "hashgrid_recall": recall,
+            "reruns_bit_identical": reruns, "hashgrid_ms": grid_ms, "hashgrid_recall": recall, "shard": shard,
         }, fh)
     return 0
+
+
+def shard_phase(d, mesh) -> dict:
+    """Phase 7i, in phase 7h's NCCL rank (world size 1): the keyframe store
+    in row blocks over the mesh (`distributed.shard_backend_state`, the
+    reference's `shard_backend`), each store access through its
+    collectives. Three parts, each timed:
+
+    1. the slice's 32 scans through `run_chunked(chunk=16)` with the store
+       laid out right after construction: map, odometry and fused poses
+       bit-identical to phase 5's unsharded run, map ATE < 0.1 m, K2
+       launched at mapping_corner and mapping_surf; the store's bytes on
+       this rank printed;
+    2. the lap's saved state (phase 7's `checkpoint.save`) loaded into a
+       pipeline whose store lies in row blocks and into an unsharded one;
+       each runs the next N_CONT scans of the lap course (frames
+       448-511, revisiting) through `run_chunked(chunk=32)`: at least one
+       loop attempt on the sharded store, the final keyframe poses
+       bit-identical, K2 launched at loop_icp;
+    3. `python -m lego_loam_torch.run` over phase 7c's KITTI fixture,
+       joining its own group (--coordinator/--num-processes 1/--process-id
+       0): exit 0, and pose.txt equal to 7c's as text.
+
+    The launches of parts 1 and 2's sharded runs, each counted alone, make
+    the `shard` path. Returns the results; raises on a failed check."""
+    from lego_loam_torch import checkpoint, launch
+    from lego_loam_torch import cuda as kcuda
+    from lego_loam_torch import distributed as D
+    from lego_loam_torch.config import vlp16
+    from lego_loam_torch.io.synthetic import campus_world, lap_trajectory, render_scan_swept
+    from lego_loam_torch.pipeline import LegoLoamPipeline
+    from lego_loam_torch.types import named_leaves
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        kcuda.reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, collections.Counter(kcuda.LAUNCHES), collections.Counter(kcuda.SITES)
+
+    # 1. the slice
+    cfg = vlp16()
+    scans = list(np.load(os.path.join(d, "slice_scans.npy")))
+    with np.load(os.path.join(d, "slice_poses.npz")) as f:
+        want = dict(f)
+    pipe = LegoLoamPipeline(cfg, seed=0)
+    pipe.bstate = D.shard_backend_state(mesh, pipe.bstate)
+    held = {name: isinstance(leaf, D.RowBlock) for name, leaf in named_leaves(pipe.bstate)}
+    store_bytes = sum(leaf.nbytes if isinstance(leaf, D.RowBlock) else leaf.numel() * leaf.element_size()
+                      for _, leaf in named_leaves(pipe.bstate))
+    out, slice_s, launches, sites = counted(lambda: pipe.run_chunked(scans, chunk=CHUNK))
+    got = {k: np.asarray(out[k]) for k in ("map_positions", "odom_positions", "fused_positions")}
+    got["map_rpys"] = np.asarray(pipe.trajectory["rpys"])
+    same = {k: bool(np.array_equal(got[k], want[k])) for k in got}
+    diff = {k: float(np.abs(got[k] - want[k]).max()) for k in got}
+    ate_map = ate(got["map_positions"], want["gt"])
+    log(f"shard: slice, {len(scans)} scans with the store in row blocks ({sum(held.values())} of {len(held)} "
+        f"leaves) over a mesh of {mesh.size()}: {store_bytes / 2 ** 30:.3f} GiB of state on this rank, "
+        f"{slice_s:.3f} s = {len(scans) / slice_s:.3f} scans/s; map ATE {ate_map:.4f} m; bit-identical to phase "
+        f"5's unsharded run: {same} (max differences {diff}); launches {dict(launches)}, by site {dict(sites)}")
+    if not all(same.values()):
+        raise AssertionError(f"shard: the sharded slice differs from phase 5's unsharded run: {diff}")
+    if not ate_map < 0.1:
+        raise AssertionError(f"shard: map ATE {ate_map:.4f} m >= 0.1 m")
+    if not all(sites.get(f"knn_top5@{k}", 0) > 0 for k in ("mapping_corner", "mapping_surf")):
+        raise AssertionError(f"shard: K2 was not launched at the mapping sites: {dict(sites)}")
+    del pipe, out
+    gc.collect()
+
+    # 2. the lap's state, continued over the revisit frames 448-511
+    lcfg = lap_config()
+    t0 = time.perf_counter()
+    poses = lap_trajectory(2, straight_frames=LAP_STRAIGHT, turn_frames=LAP_TURN)
+    world = campus_world(poses[:N_LAP])  # the world of phase 7's course
+    cont = [render_scan_swept(poses[i - 1], poses[i], lcfg, world, noise=0.01, seed=100 + i)
+            for i in range(N_LAP, N_LAP + N_CONT)]
+    render_s = time.perf_counter() - t0
+    ckpt = os.path.join(d, "lap.npz")
+    plain = checkpoint.load(LegoLoamPipeline(lcfg, seed=0), ckpt)
+    _, plain_s, _, _ = counted(lambda: plain.run_chunked(cont, chunk=LAP_CHUNK))
+    kR_plain, kt_plain, _ = plain.keyframe_trajectory()
+    del plain
+    gc.collect()
+    lap = LegoLoamPipeline(lcfg, seed=0)
+    lap.bstate = D.shard_backend_state(mesh, lap.bstate)
+    checkpoint.load(lap, ckpt)  # keeps the row blocks
+    if not isinstance(lap.bstate.kf_t, D.RowBlock):
+        raise AssertionError("shard: checkpoint.load dropped the store's row blocks")
+    _, lap_s, lap_launches, lap_sites = counted(lambda: lap.run_chunked(cont, chunk=LAP_CHUNK))
+    kR, kt, _ = lap.keyframe_trajectory()
+    attempts = sum(1 for r in lap.loop_diag if "icp_fitness" in r)
+    kf_same = bool(np.array_equal(kR, kR_plain) and np.array_equal(kt, kt_plain))
+    log(f"shard: lap state (frame {N_LAP}, {len(kt)} keyframes at the end) continued over {N_CONT} revisit "
+        f"frames (rendered in {render_s:.1f} s): unsharded {plain_s:.3f} s, sharded {lap_s:.3f} s; on the sharded "
+        f"store {attempts} attempts, {len(lap.loop_factors)} loop factors "
+        f"{[(f.i, f.j, round(f.fitness, 4)) for f in lap.loop_factors[-3:]]}; final keyframe poses bit-identical: "
+        f"{kf_same} (max |t| difference {float(np.abs(kt - kt_plain).max()):.3e} m); launches "
+        f"{dict(lap_launches)}, by site {dict(lap_sites)}")
+    if not (attempts >= 1 and kf_same):
+        raise AssertionError(f"shard: {attempts} attempts on the sharded store, keyframes bit-identical {kf_same}")
+    if not lap_sites.get("knn_top5@loop_icp", 0) > 0:
+        raise AssertionError(f"shard: K2 was not launched at loop_icp: {dict(lap_sites)}")
+    del lap
+    gc.collect()
+
+    # 3. the CLI joining a group of one over phase 7c's fixture
+    with open(os.path.join(d, "cli.json")) as fh:
+        fixture = json.load(fh)
+    out_dir = os.path.join(d, "out_cli_group")
+    prof = cli("--kitti", fixture["seq"], "--coordinator", f"127.0.0.1:{launch._free_port()}", "--num-processes", "1",
+               "--process-id", "0", out=out_dir)
+    with open(os.path.join(out_dir, "pose.txt")) as a, open(fixture["pose"]) as b:
+        pose_same = a.read() == b.read()
+    log(f"shard: CLI with --coordinator/--num-processes 1/--process-id 0 over phase 7c's KITTI fixture: "
+        f"{prof['scans']} scans in {prof['seconds']:.3f} s ({prof['process_seconds']:.1f} s for the whole process); "
+        f"pose.txt equal to 7c's: {pose_same}")
+    if not pose_same:
+        raise AssertionError("shard: the CLI's pose.txt in a group differs from phase 7c's")
+
+    launches, sites = launches + lap_launches, sites + lap_sites
+    return {"launches": dict(launches), "launches_by_site": dict(sites), "store_gib_per_rank": store_bytes / 2 ** 30,
+            "slice_s": slice_s, "slice_ate_map_m": ate_map, "slice_bit_identical": same,
+            "lap_cont_frames": N_CONT, "lap_cont_unsharded_s": plain_s, "lap_cont_sharded_s": lap_s,
+            "lap_cont_attempts": attempts, "lap_cont_kf_bit_identical": kf_same,
+            "cli_group_s": prof["seconds"], "cli_group_process_s": prof["process_seconds"],
+            "cli_group_pose_equal": pose_same, "cli_group_launches": prof["launches"]}
 
 
 def run_dist(d):
@@ -1366,10 +1515,12 @@ def main() -> int:
         k1_masks[pcfg.laser.num_vertical_scans], k1_err = masks, max(k1_err, err)
         presets[name] = (pcfg, pgt, pscans)
     shapes = check_k2(dev)
-    summary, launches, map_call = run_slice(cfg, scans, gt)
+    summary, launches, map_call, slice_poses = run_slice(cfg, scans, gt)
     dist_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dist_")
     dd = dist_tmp.name
     torch.save(map_call, os.path.join(dd, "map_call.pt"))
+    np.save(os.path.join(dd, "slice_scans.npy"), np.stack(scans))  # phase 7i's sharded slice
+    np.savez(os.path.join(dd, "slice_poses.npz"), gt=gt, **slice_poses)
     summary["scan_run"] = run_per_scan(cfg, scans, gt)
     summary.update(profile_slice(cfg, scans, 1e3 * summary["seconds"] / summary["scans"]))
     summary["presets"] = {name: drive_preset(name, *args) for name, args in presets.items()}
@@ -1395,7 +1546,10 @@ def main() -> int:
         summary["reloc"] = run_reloc(cfg, cli_truth, os.path.join(d, "out_kitti"), bag, d)
         summary["native"] = run_native(seq, cli_scans, cfg)
         summary["eskf"] = run_eskf_phase(d)
-    summary["dist"], sharded_clouds = run_dist(dd)
+        with open(os.path.join(dd, "cli.json"), "w") as fh:  # phase 7i's CLI over phase 7c's fixture
+            json.dump({"seq": seq, "pose": os.path.join(d, "out_kitti", "pose.txt")}, fh)
+        summary["dist"], sharded_clouds = run_dist(dd)
+    summary["shard"] = summary["dist"].pop("shard")
     dist_tmp.cleanup()
 
     # K1 times at the main path's shape: one launch per chunk of CHUNK scans
@@ -1450,6 +1604,22 @@ def main() -> int:
             f"twin {plain:.4f} ms, cdist+topk {lib:.4f} ms, bound {bound:.5f} ms ({bound_by}), "
             f"{100 * bound / dev_ms:.1f}% of bound, "
             f"{per_shape[-1]['launches']} launches in the {path} drive")
+    # K2 at the row-block shapes a store over W ranks gives the scan-to-map
+    # search: the first of W blocks of the mapping clouds
+    blocks = []
+    for name in ("mapping corner", "mapping surf"):
+        q, t, m, _ = shapes[name]
+        for W in (2, 4):
+            tb, mb = t[: t.shape[0] // W].contiguous(), m[: t.shape[0] // W].contiguous()
+            ms = time_ms(lambda: top5_l2(q, tb, mb))
+            dev_ms = kernel_ms(lambda: top5_l2(q, tb, mb))
+            ops = q.shape[0] * int(mb.sum()) * 8 / FP32_OPS_PER_S * 1e3
+            byts = (q.shape[0] * 12 + tb.shape[0] * 13 + q.shape[0] * 40) / HBM_BYTES_PER_S * 1e3
+            blocks.append({"shape": f"{name} block 1/{W}", "Q": q.shape[0], "T": tb.shape[0], "ms": ms,
+                           "device_ms": dev_ms, "bound_ms": max(ops, byts),
+                           "bound_by": "operations" if ops >= byts else "bytes"})
+            log(f"K2 {name} block 1/{W} Q={q.shape[0]} T={tb.shape[0]}: {ms:.4f} ms a call, kernel alone "
+                f"{dev_ms:.4f} ms, bound {max(ops, byts):.5f} ms")
     big = next(r for r in per_shape if r["shape"] == "mapping surf")
     records.append({
         "name": "knn_top5", "route": "cuda", "source": "lego_loam_torch/csrc/knn.cu",
@@ -1461,7 +1631,7 @@ def main() -> int:
         "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
         "library_ms": big["library_ms"], "device_ms": big["device_ms"],
         "bound_share": big["bound_share"],
-        "shapes": per_shape,
+        "shapes": per_shape, "blocks": blocks,
     })
     log(json.dumps({"slice": summary}))
     log(card_line())

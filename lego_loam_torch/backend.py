@@ -8,6 +8,13 @@ keyframe's row IN PLACE: a copy of the store per frame would move ~1.4 GB
 at the default capacity. The submap is cached and rebuilt only after the
 vehicle moved `submap_rebuild_dist` or `submap_rebuild_every` keyframes
 landed.
+
+The store may lie in row blocks over the ranks (`distributed.
+shard_backend_state`): every access goes through the store helpers of
+`distributed.py`, which take either layout. The radius search reads the
+gathered `kf_t`; submap assembly gathers the selected rows in selection
+order and runs on every rank, then keeps this rank's block of the submap;
+the new keyframe's row is written by its owner.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import numpy as np
 import torch
 
 from .config import LegoLoamConfig
+from .distributed import all_rows, gather_rows, laid_out_as, write_row
 from .mapping import assemble_submap, map_prior, scan_to_map
 from .math import se3
 from .ops.voxel import voxel_downsample_masked
@@ -137,7 +145,7 @@ def _select_keyframes(state: BackendState, center, cfg: LegoLoamConfig):
     slots = torch.arange(K, device=dev)
     age = torch.remainder(state.n_kf - 1 - slots, K)
     active = (slots < state.n_kf) & (age >= lag)
-    d = torch.linalg.norm(state.kf_t - center[None, :], dim=1)
+    d = torch.linalg.norm(all_rows(state.kf_t) - center[None, :], dim=1)
     d = torch.where(active & (d < m.surrounding_keyframe_search_radius), d, float("inf"))
     neg, idx = torch.topk(-d, sel)
     return idx, torch.isfinite(neg)
@@ -154,17 +162,18 @@ def backend_step_ds(state: BackendState, c_xyz, c_m, s_xyz, s_m, R_odom, t_odom,
     if bool(moved_far | stale | (state.n_kf < 5)):
         idx, valid = _select_keyframes(state, t_prior, cfg)
         submap = assemble_submap(
-            state.kf_corner[idx].reshape(-1, KF_CORNER_CAP, 3),
-            state.kf_corner_mask[idx],
-            state.kf_surf[idx].reshape(-1, KF_SURF_CAP, 3),
-            state.kf_surf_mask[idx],
-            state.kf_R[idx],
-            state.kf_t[idx],
+            gather_rows(state.kf_corner, idx).reshape(-1, KF_CORNER_CAP, 3),
+            gather_rows(state.kf_corner_mask, idx),
+            gather_rows(state.kf_surf, idx).reshape(-1, KF_SURF_CAP, 3),
+            gather_rows(state.kf_surf_mask, idx),
+            gather_rows(state.kf_R, idx),
+            gather_rows(state.kf_t, idx),
             valid,
             t_prior,
             cfg,
         )
-        state = state.replace(submap=submap, submap_center=t_prior, submap_n_kf=state.n_kf)
+        state = state.replace(submap=laid_out_as(state.submap, submap), submap_center=t_prior,
+                              submap_n_kf=state.n_kf)
 
     R_new, t_new, diag = scan_to_map(c_xyz, c_m, s_xyz, s_m, R_prior, t_prior, state.submap, cfg)
     R_new = se3.orthonormalize(R_new)
@@ -173,8 +182,8 @@ def backend_step_ds(state: BackendState, c_xyz, c_m, s_xyz, s_m, R_odom, t_odom,
     K = state.capacity
     n = state.n_kf.long().reshape(1)
     last = torch.where(n > 0, torch.remainder(n - 1, K), 0)
-    kf_R_last = state.kf_R.index_select(0, last)[0]
-    kf_t_last = state.kf_t.index_select(0, last)[0]
+    kf_R_last = gather_rows(state.kf_R, last)[0]
+    kf_t_last = gather_rows(state.kf_t, last)[0]
     moved = torch.linalg.norm(kf_t_last - t_new) > m.keyframe_gate_distance
     is_kf = ((n == 0) | moved | bool(m.keyframe_gate_always))[0]
     slot = torch.remainder(n, K)
@@ -183,21 +192,15 @@ def backend_step_ds(state: BackendState, c_xyz, c_m, s_xyz, s_m, R_odom, t_odom,
     rel_R = torch.where(first, torch.eye(3, device=R_new.device), rel_R)
     rel_t = torch.where(first, torch.zeros_like(rel_t), rel_t)
 
-    # Masked single-row writes: the row is rewritten with itself when the
-    # gate is closed, so no host decision is needed.
-    def write(buf, new):
-        row = torch.where(is_kf, new, buf.index_select(0, slot)[0])
-        buf.index_copy_(0, slot, row[None])
-
-    write(state.kf_rel_R, rel_R)
-    write(state.kf_rel_t, rel_t)
-    write(state.kf_R, R_new)
-    write(state.kf_t, t_new)
-    write(state.kf_time, torch.as_tensor(time, dtype=torch.float32, device=t_new.device))
-    write(state.kf_corner, c_xyz[:KF_CORNER_CAP].reshape(-1))
-    write(state.kf_corner_mask, c_m[:KF_CORNER_CAP])
-    write(state.kf_surf, s_xyz[:KF_SURF_CAP].reshape(-1))
-    write(state.kf_surf_mask, s_m[:KF_SURF_CAP])
+    # Masked single-row writes by the slot's owner: the row is rewritten
+    # with itself when the gate is closed, so no host decision is needed.
+    for leaf, new in (
+        (state.kf_rel_R, rel_R), (state.kf_rel_t, rel_t), (state.kf_R, R_new), (state.kf_t, t_new),
+        (state.kf_time, torch.as_tensor(time, dtype=torch.float32, device=t_new.device)),
+        (state.kf_corner, c_xyz[:KF_CORNER_CAP].reshape(-1)), (state.kf_corner_mask, c_m[:KF_CORNER_CAP]),
+        (state.kf_surf, s_xyz[:KF_SURF_CAP].reshape(-1)), (state.kf_surf_mask, s_m[:KF_SURF_CAP]),
+    ):
+        write_row(leaf, slot, new, is_kf)
     state = state.replace(
         n_kf=state.n_kf + is_kf.to(state.n_kf.dtype),
         R_map=R_new, t_map=t_new, R_odom=R_odom, t_odom=t_odom,

@@ -13,44 +13,38 @@ the backend state's, in field-declaration order with nested states
 `jax.tree.flatten` gives for the reference's flax structs; `__meta__` is
 the JSON of `frame_idx` and the loop factors. Map products (PCDs,
 trajectory) are separate, via `save_artifacts` + `mapproducts.save_map`.
+
+A file holds whole leaves whatever the layout that saved it: `save`
+gathers a store in row blocks (every rank calls it; rank 0 writes), and
+`load` reads the whole arrays and keeps this rank's block under the
+layout of the state it replaces, so a run resumes on another number of
+ranks (the reference's reshard onto the loading process's mesh).
 """
 
 from __future__ import annotations
 
-import dataclasses
 import json
 
 import numpy as np
 import torch
 
+from .distributed import all_rows, is_writer, laid_out_as
 from .pipeline import LegoLoamPipeline, LoopFactor
-
-
-def _leaves(state) -> list:
-    out = []
-    for f in dataclasses.fields(state):
-        v = getattr(state, f.name)
-        out.extend(_leaves(v) if dataclasses.is_dataclass(v) else [v])
-    return out
-
-
-def _rebuild(template, leaves):
-    """`template`'s dataclass tree with its tensors taken in order from the
-    iterator `leaves`."""
-    kw = {}
-    for f in dataclasses.fields(template):
-        v = getattr(template, f.name)
-        kw[f.name] = _rebuild(v, leaves) if dataclasses.is_dataclass(v) else next(leaves)
-    return dataclasses.replace(template, **kw)
+from .types import map_leaves, named_leaves
 
 
 def _flatten(prefix, state) -> dict:
-    return {f"{prefix}{i}": leaf.detach().cpu().numpy() for i, leaf in enumerate(_leaves(state))}
+    """Each leaf whole, under its key (a leaf in row blocks is gathered)."""
+    return {f"{prefix}{i}": all_rows(leaf) for i, (_, leaf) in enumerate(named_leaves(state))}
 
 
 def save(pipe: LegoLoamPipeline, path: str):
     """Write the pipeline's state to `path` (numpy appends `.npz` when the
-    name lacks it)."""
+    name lacks it). In a process group every rank calls it and rank 0
+    writes."""
+    leaves = {**_flatten("f", pipe.fstate), **_flatten("b", pipe.bstate)}
+    if not is_writer():
+        return
     meta = {
         "frame_idx": pipe.frame_idx,
         "loop_factors": [
@@ -58,34 +52,36 @@ def save(pipe: LegoLoamPipeline, path: str):
             for f in pipe.loop_factors
         ],
     }
-    np.savez_compressed(path, __meta__=json.dumps(meta), **_flatten("f", pipe.fstate), **_flatten("b", pipe.bstate))
+    np.savez_compressed(path, __meta__=json.dumps(meta), **{k: v.detach().cpu().numpy() for k, v in leaves.items()})
 
 
 def load(pipe: LegoLoamPipeline, path: str) -> LegoLoamPipeline:
-    """Restore state saved by `save` (by either package) into a freshly
-    constructed pipeline of the same config, on the pipeline's device.
-    Raises ValueError where a leaf's shape or dtype differs from the
-    pipeline's own. The port keeps its frame numbers on the host, so there
-    is no device frame counter to re-sync (the reference's `_idx_dev`)."""
+    """Restore state saved by `save` (by either package, on any number of
+    ranks) into a freshly constructed pipeline of the same config, on the
+    pipeline's device, each leaf laid out as the pipeline's own (this
+    rank's rows of a leaf in row blocks). Raises ValueError where a leaf's
+    shape or dtype differs from the pipeline's. The port keeps its frame
+    numbers on the host, so there is no device frame counter to re-sync
+    (the reference's `_idx_dev`)."""
     with np.load(path, allow_pickle=False) as data:
         meta = json.loads(str(data["__meta__"]))
 
         def unflatten(prefix, template):
-            new = []
-            for i, leaf in enumerate(_leaves(template)):
-                a = data[f"{prefix}{i}"]
+            index = {name: i for i, (name, _) in enumerate(named_leaves(template))}
+
+            def read(name, leaf):
+                key = f"{prefix}{index[name]}"
+                a = data[key]
                 want = str(leaf.dtype).removeprefix("torch.")
                 if a.shape != tuple(leaf.shape) or a.dtype != np.dtype(want):
-                    raise ValueError(
-                        f"{path}: {prefix}{i} is {a.dtype}{list(a.shape)}, the pipeline's is {want}{list(leaf.shape)}"
-                    )
-                new.append(torch.from_numpy(np.array(a)).to(pipe.device))
-            return _rebuild(template, iter(new))
+                    raise ValueError(f"{path}: {key} is {a.dtype}{list(a.shape)}, the pipeline's is "
+                                     f"{want}{list(leaf.shape)}")
+                return torch.from_numpy(np.array(a)).to(pipe.device)
+
+            return laid_out_as(template, map_leaves(template, read))
 
         pipe.fstate = unflatten("f", pipe.fstate)
         pipe.bstate = unflatten("b", pipe.bstate)
-    # Resharding onto a sharded keyframe store (the reference's
-    # shard_backend_state) waits for its port (ROADMAP §1 item 7).
     pipe.frame_idx = int(meta["frame_idx"])
     pipe.loop_factors = [
         LoopFactor(

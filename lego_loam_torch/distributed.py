@@ -18,11 +18,19 @@ collectives written out:
 - `sharded_map_gn_step`: the submap in row blocks, queries replicated; a
   local 5-NN per rank (kernel K2 on the card, at the site
   `mapping_sharded`), the candidates gathered in rank order and merged.
+- `shard_backend_state`: the keyframe store and the assembled submap in
+  row blocks over the ranks, by the rule of `backend_state_shardings`.
+  A row-blocked leaf is a `RowBlock`: this rank's rows plus the mesh, so
+  the state carries its layout as a sharded JAX array does, and the code
+  downstream dispatches on the leaf. Where the reference lets GSPMD
+  partition each access, the store helpers (`all_rows`, `gather_rows`,
+  `write_row`, `set_rows`, `row_sum`, `top5_rows`) write each one out as a
+  local operation plus its collective, with one code path for both layouts.
 
 Divergences from the reference: a mesh spans the whole world (torch meshes
-cover the process group), so `make_mesh` refuses another device count;
-`backend_state_shardings` / `shard_backend_state` (the keyframe store
-sharded for GSPMD) are not ported yet (ROADMAP §1 item 7).
+cover the process group), so `make_mesh` refuses another device count; a
+store's reads are gathers (exact), so a sharded run gives the bits of the
+unsharded one, where the reference's GSPMD sums in another order.
 """
 
 from __future__ import annotations
@@ -34,7 +42,6 @@ import torch
 import torch.distributed as dist
 
 from .config import LegoLoamConfig
-from .mapping import plane_fit_pca
 from .math import se3
 from .ops.knn import top5_l2
 from .posegraph import (
@@ -49,6 +56,7 @@ from .posegraph import (
     solve_dense_gn,
     solve_pose_graph,
 )
+from .types import map_leaves, named_leaves
 
 TIMEOUT = datetime.timedelta(seconds=60)  # a rank that never arrives fails the run
 
@@ -130,10 +138,188 @@ def _all_reduce(x, group):
 
 
 def _all_gather(x, group, n):
-    """Every rank's x, concatenated along dim 0 in rank order."""
+    """Every rank's x, concatenated along dim 0 in rank order (a bool
+    tensor travels as bytes)."""
+    if x.dtype == torch.bool:
+        return _all_gather(x.view(torch.uint8), group, n).view(torch.bool)
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts)
+
+
+def is_writer() -> bool:
+    """Whether this process writes files: rank 0 of a process group, or a
+    process outside any group."""
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
+# ---------------------------------------------------------------------------
+# The keyframe store in row blocks
+# ---------------------------------------------------------------------------
+
+
+class RowBlock:
+    """This rank's row block of a leaf laid out in row blocks over a mesh
+    (the reference's P(("graph", "map"))): rows [r K/n, (r+1) K/n) of the
+    whole leaf's K, for the rank's flattened mesh position r. `shape` is
+    the whole leaf's and `local` holds the block. Torch functions do not
+    take it: the store helpers below read and write it."""
+
+    __slots__ = ("local", "mesh", "rows", "start")
+
+    def __init__(self, local, mesh, rows: int):
+        self.local, self.mesh, self.rows = local, mesh, rows
+        self.start = _position(mesh) * local.shape[0]
+
+    @property
+    def shape(self):
+        return torch.Size((self.rows, *self.local.shape[1:]))
+
+    @property
+    def dtype(self):
+        return self.local.dtype
+
+    @property
+    def device(self):
+        return self.local.device
+
+    @property
+    def nbytes(self) -> int:
+        return self.local.numel() * self.local.element_size()
+
+
+def backend_state_shardings(mesh, state) -> dict:
+    """Leaf by leaf (dotted names, `types.named_leaves`): "rows" for a leaf
+    of the keyframe store (`kf_*`) or of the assembled submap (`submap.*`)
+    whose leading axis divides over the mesh, else "replicated" (scalars,
+    poses, `submap_center`, and any leaf that does not divide), the rule
+    of the reference's `backend_state_shardings`."""
+    n = mesh.size()
+
+    def kind(name, leaf):
+        if len(leaf.shape) and name.startswith(("kf_", "submap.")) and leaf.shape[0] % n == 0:
+            return "rows"
+        return "replicated"
+
+    return {name: kind(name, leaf) for name, leaf in named_leaves(state)}
+
+
+def shard_backend_state(mesh, state):
+    """`state` with its row-blocked leaves (`backend_state_shardings`) as
+    `RowBlock`s holding this rank's rows; the other leaves whole. A state
+    already in row blocks is gathered first, so the call also re-lays a
+    state out. Every rank of the mesh calls it."""
+    kinds = backend_state_shardings(mesh, state)
+    return map_leaves(state, lambda name, leaf: _block(all_rows(leaf), mesh) if kinds[name] == "rows"
+                      else all_rows(leaf))
+
+
+def laid_out_as(template, state):
+    """`state` (whole leaves) laid out as `template` (a state of the same
+    tree) is: where the template's leaf is a `RowBlock`, this rank's rows
+    on its mesh."""
+    old = dict(named_leaves(template))
+    return map_leaves(state, lambda name, leaf: _block(leaf, old[name].mesh) if isinstance(old[name], RowBlock)
+                      else leaf)
+
+
+def _block(whole, mesh):
+    block = shard_rows(whole, mesh)
+    # a copy, so that the whole leaf can be freed; at one rank the block is the whole
+    return RowBlock(block.clone() if block.shape[0] < whole.shape[0] else block, mesh, whole.shape[0])
+
+
+def _gather_blocks(x, mesh):
+    """Every rank's x concatenated along dim 0 in mesh order (one
+    all_gather over the world)."""
+    n = mesh.size()
+    parts = _all_gather(x, _whole_group(mesh), n).reshape(n, *x.shape)
+    order = mesh.mesh.flatten().tolist()
+    if order != list(range(n)):
+        parts = parts[torch.tensor(order, device=x.device)]
+    return parts.reshape(n * x.shape[0], *x.shape[1:])
+
+
+def all_rows(leaf):
+    """The whole leaf in slot order: the tensor itself, or every rank's
+    block gathered."""
+    if not isinstance(leaf, RowBlock):
+        return leaf
+    return _gather_blocks(leaf.local, leaf.mesh)
+
+
+def gather_rows(leaf, idx):
+    """Rows `idx` (a 1-D int tensor of slots, the same on every rank) of the
+    leaf, in idx order. Row blocks: each rank takes the rows it holds
+    (clamped where it holds none), one all_gather, and each row is read
+    from its owner's part."""
+    idx = idx.long()
+    if not isinstance(leaf, RowBlock):
+        return leaf.index_select(0, idx)
+    if not idx.numel():  # the same on every rank: no collective
+        return leaf.local[:0].clone()
+    b = leaf.local.shape[0]
+    mine = leaf.local.index_select(0, torch.clamp(idx - leaf.start, 0, b - 1))
+    parts = _gather_blocks(mine, leaf.mesh).reshape(leaf.mesh.size(), *mine.shape)
+    return parts[idx // b, torch.arange(idx.shape[0], device=idx.device)]
+
+
+def write_row(leaf, slot, row, where):
+    """Row `slot` (a (1,) int tensor) of the leaf becomes `row` where the
+    bool tensor `where` holds and keeps its value elsewhere, in place and
+    decided on the device (no host read). Row blocks: the owner writes;
+    every other rank rewrites one of its rows with itself."""
+    slot = slot.long()
+    buf = leaf
+    if isinstance(leaf, RowBlock):
+        buf, b = leaf.local, leaf.local.shape[0]
+        local = slot - leaf.start
+        where = where & (local[0] >= 0) & (local[0] < b)
+        slot = torch.clamp(local, 0, b - 1)
+    buf.index_copy_(0, slot, torch.where(where, row, buf.index_select(0, slot)[0])[None])
+
+
+def set_rows(leaf, whole):
+    """The leaf takes `whole`'s rows in place (every rank passes the same
+    whole leaf); a block copies its own rows."""
+    if isinstance(leaf, RowBlock):
+        leaf.local.copy_(whole[leaf.start:leaf.start + leaf.local.shape[0]])
+    else:
+        leaf.copy_(whole)
+
+
+def row_sum(leaf):
+    """The sum of every element of the leaf; over row blocks, each rank's
+    sum all-reduced (exact for the integer sums of masks)."""
+    if not isinstance(leaf, RowBlock):
+        return leaf.sum()
+    return _all_reduce(leaf.local.sum(), _whole_group(leaf.mesh))
+
+
+def _merge_top5(q, xyz, mask, mesh, site):
+    """The 5 nearest unmasked points of each query among the row blocks of
+    a target over the mesh, each rank passing its block: K2 (`top5_l2`, at
+    `site`) on the block, the candidates' d2 and coordinates gathered in
+    mesh order and merged by a stable sort, so that equal d2 keep the lower
+    global row, as `lax.top_k` does. Returns (d2 (Q, 5), points (Q, 5, 3)).
+    An empty slot (d2 1e30) carries its block's row 0: the merge takes
+    empties last and rank 0's first, so those it keeps are the whole
+    target's row 0, where an unsharded search's clamped index points."""
+    k = 5
+    idx, d2 = top5_l2(q, xyz, mask, groups=1, site=site)
+    cand = xyz[torch.clamp(idx, min=0).long()]  # (Q, 5, 3)
+    Q, n = q.shape[0], mesh.size()
+    merged = _gather_blocks(torch.cat([d2[..., None], cand], dim=-1)[None], mesh)  # (n, Q, 5, 4)
+    merged = merged.permute(1, 0, 2, 3).reshape(Q, n * k, 4)
+    order = torch.argsort(merged[..., 0], dim=1, stable=True)[:, :k]
+    best = torch.gather(merged, 1, order[..., None].expand(-1, -1, 4))
+    return best[..., 0], best[..., 1:]
+
+
+def top5_rows(q, xyz, mask, site):
+    """`_merge_top5` over a submap leaf in row blocks (`RowBlock`s of its
+    points and mask)."""
+    return _merge_top5(q, xyz.local, mask.local, xyz.mesh, site)
 
 
 # ---------------------------------------------------------------------------
@@ -349,22 +535,15 @@ def sharded_map_gn_step(mesh, cfg: LegoLoamConfig):
     the reference's top_k does); the candidates are gathered in rank order
     (the reference's "map" gather inside its "graph" gather) and merged by
     a stable sort. The plane fits and the normal equations are replicated."""
-    group = _whole_group(mesh)
-    nd = mesh.size()
-    k = 5
+    from .mapping import plane_fit_pca
+
+    _whole_group(mesh)  # refuses a mesh that does not span the world
 
     def step(q_surf, q_mask, map_xyz, map_mask, R, t):
         q = q_surf @ R.T + t
-        idx, d2 = top5_l2(q, map_xyz, map_mask, groups=1, site="mapping_sharded")
-        # an empty slot (index -1, d2 1e30) never passes the 5th-NN gate
-        cand_p = map_xyz[torch.clamp(idx, min=0).long()]  # (Q, 5, 3)
-        Q = q.shape[0]
-        gathered = _all_gather(torch.cat([d2[..., None], cand_p], dim=-1), group, nd)
-        merged = gathered.reshape(nd, Q, k, 4).permute(1, 0, 2, 3).reshape(Q, nd * k, 4)
-        order = torch.argsort(merged[..., 0], dim=1, stable=True)[:, :k]
-        best = torch.gather(merged, 1, order[..., None].expand(-1, -1, 4))
-        d5, nbr = best[..., 0], best[..., 1:]
-        ok = q_mask & (d5[:, 4] < cfg.mapping.nn_valid_dist)
+        # an empty slot (d2 1e30) never passes the 5th-NN gate
+        d2, nbr = _merge_top5(q, map_xyz, map_mask, mesh, "mapping_sharded")
+        ok = q_mask & (d2[:, 4] < cfg.mapping.nn_valid_dist)
 
         n, d_off = plane_fit_pca(nbr)
         fitd = torch.abs(torch.einsum("qki,qi->qk", nbr, n) + d_off[:, None])

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import LegoLoamConfig
+from .distributed import all_rows, gather_rows
 from .math import se3
 from .ops.knn import top5_l2
 
@@ -179,7 +180,8 @@ def compute_loopinfo(kf_t, kf_time, n_kf, t_query, cfg: LegoLoamConfig):
     keyframe to t_query among those more than `loop_time_gap` older than
     the newest, by one masked argmin. Returns a packed (4,) float32
     [cand_slot, cand_dist (inf if none), n_kf, cur_slot] (slots exact in
-    float32 below 2^24)."""
+    float32 below 2^24). Store leaves in row blocks are gathered whole."""
+    kf_t, kf_time = all_rows(kf_t), all_rows(kf_time)
     K = kf_t.shape[0]
     dev = kf_t.device
     n_kf = _scalar(n_kf, dev)
@@ -200,8 +202,12 @@ def attempt_loop_closure(
     """One loop-closure attempt: coarse 2-D align -> gates -> surf ICP ->
     gates -> relative between-factor, all on the device.
 
-    kf_corner/kf_surf are (K, Nc, 3)/(K, Ns, 3) sensor-frame clouds;
-    cand_slot, cur_slot and n_kf are () int tensors (n_kf as at detection).
+    kf_corner/kf_surf are the sensor-frame clouds, (K, Nc, 3)/(K, Ns, 3)
+    or the store's flat rows; cand_slot, cur_slot and n_kf are () int
+    tensors (n_kf as at detection). Only the window's, the current and the
+    candidate keyframe's rows are read, in one gather per leaf
+    (`distributed.gather_rows`: a store in row blocks sends them to every
+    rank, and the alignment runs on each).
     Returns (flags, R_rel, t_rel): flags is a packed (8,) float32
     [accepted, i_abs, j_abs, fitness, coarse_score, coarse_frac, icp_iters,
     inlier_frac]; ids are ABSOLUTE keyframe ids (they survive ring motion)."""
@@ -219,17 +225,28 @@ def attempt_loop_closure(
         torch.clamp(A_live - 1, min=0),
     )
     idx = (start + win) % K
+    n_win = idx.shape[0]
+    rows = torch.cat([idx, cur_slot.reshape(1), cand_slot.reshape(1)])
 
-    c_cur, c_cand = _at(kf_t, cur_slot), _at(kf_t, cand_slot)
-    cur_R, cand_R = _at(kf_R, cur_slot), _at(kf_R, cand_slot)
-    win_R, win_t = kf_R[idx], kf_t[idx]
+    def take(leaf, cloud=False):
+        """The leaf's rows: (window, current, candidate)."""
+        r = gather_rows(leaf, rows)
+        r = r.reshape(r.shape[0], -1, 3) if cloud else r
+        return r[:n_win], r[n_win], r[n_win + 1]
+
+    win_R, cur_R, cand_R = take(kf_R)
+    win_t, c_cur, c_cand = take(kf_t)
+    win_corner, cur_corner, _ = take(kf_corner, cloud=True)
+    win_corner_mask, cur_corner_mask, _ = take(kf_corner_mask)
+    win_surf, cur_surf, _ = take(kf_surf, cloud=True)
+    win_surf_mask, cur_surf_mask, _ = take(kf_surf_mask)
 
     # Stage 1: global (yaw, dx, dy) from occupancy correlation of the corner
     # (structure) clouds, both centred on their keyframes.
-    tgt_c = torch.einsum("kij,knj->kni", win_R, kf_corner[idx]) + (win_t - c_cand[None])[:, None, :]
-    src_c = torch.einsum("ij,nj->ni", cur_R, _at(kf_corner, cur_slot))
+    tgt_c = torch.einsum("kij,knj->kni", win_R, win_corner) + (win_t - c_cand[None])[:, None, :]
+    src_c = torch.einsum("ij,nj->ni", cur_R, cur_corner)
     dx, dy, yaw, score, n_src = coarse_align_2d(
-        src_c, _at(kf_corner_mask, cur_slot), tgt_c.reshape(-1, 3), kf_corner_mask[idx].reshape(-1),
+        src_c, cur_corner_mask, tgt_c.reshape(-1, 3), win_corner_mask.reshape(-1),
         n_yaw=m.loop_coarse_n_yaw, yaw_step=m.loop_coarse_yaw_step_deg * math.pi / 180.0,
         extent=m.loop_coarse_extent, cell=m.loop_coarse_cell, search=m.loop_coarse_search,
     )
@@ -239,10 +256,10 @@ def attempt_loop_closure(
     # Stage 2: surf ICP from the coarse init with a tight gate; it always
     # runs, and its result is kept only where stage 1 passed.
     st = max(m.loop_icp_src_stride, 1)
-    src_s = torch.einsum("ij,nj->ni", cur_R, _at(kf_surf, cur_slot)[::st]) + c_cur[None, :]
-    src_s_mask = _at(kf_surf_mask, cur_slot)[::st]
-    tgt_s = (torch.einsum("kij,knj->kni", win_R, kf_surf[idx]) + win_t[:, None, :]).reshape(-1, 3)
-    tgt_s_mask = kf_surf_mask[idx].reshape(-1)
+    src_s = torch.einsum("ij,nj->ni", cur_R, cur_surf[::st]) + c_cur[None, :]
+    src_s_mask = cur_surf_mask[::st]
+    tgt_s = (torch.einsum("kij,knj->kni", win_R, win_surf) + win_t[:, None, :]).reshape(-1, 3)
+    tgt_s_mask = win_surf_mask.reshape(-1)
     # dz from the ground-dominated surf mean-z gap (yaw about z keeps z)
     ns = torch.clamp(src_s_mask.sum(), min=1)
     nt = torch.clamp(tgt_s_mask.sum(), min=1)

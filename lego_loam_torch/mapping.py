@@ -7,6 +7,12 @@ residuals a 5-NN PCA plane with the 0.2 m validity gate; the 5-NN search is
 kernel K2 with groups=1 (exact, where the TPU path used groups=16). The
 solver is on-manifold 6-DoF GN with eigenvalue degeneracy projection, a
 per-iteration trust region and a whole-solve rejection gate.
+
+A submap in row blocks over the ranks (`distributed.RowBlock`, from a
+sharded keyframe store) is searched block by block: K2 on this rank's
+block, the candidates merged in rank order (`distributed.top5_rows`); the
+fits take the merged neighbours' coordinates, so they see the points an
+unsharded search finds, in the same order.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from .config import LegoLoamConfig
+from .distributed import RowBlock, row_sum, top5_rows
 from .math import se3
 from .math.linalg3 import eigh3x3, eigvals3x3_components, eigvec_extreme_components
 from .ops.knn import top5_l2
@@ -38,8 +45,12 @@ class MapDiag(NamedTuple):
 
 
 def _nn5(q, target, t_mask, site):
+    """(Q, 5, 3): the 5 nearest unmasked targets of each query, nearest
+    first; an empty slot takes the target's row 0."""
+    if isinstance(target, RowBlock):
+        return top5_rows(q, target, t_mask, site)[1]
     idx, _ = top5_l2(q, target, t_mask, groups=1, site=site)
-    return idx
+    return target[idx.clamp(min=0).long()]
 
 
 def assemble_submap(
@@ -69,10 +80,9 @@ def assemble_submap(
     )
 
 
-def _neighbours(q, q_mask, idx, points, cfg):
-    """(Q, 5) neighbour component planes and the 5th-NN gate evaluated from
-    the current query position."""
-    nbr = points[idx]  # (Q, 5, 3)
+def _neighbours(q, q_mask, nbr, cfg):
+    """(Q, 5) component planes of the (Q, 5, 3) neighbours and the 5th-NN
+    gate evaluated from the current query position."""
     nx, ny, nz = nbr[..., 0], nbr[..., 1], nbr[..., 2]
     d2_now = (nx - q[:, :1]) ** 2 + (ny - q[:, 1:2]) ** 2 + (nz - q[:, 2:]) ** 2
     ok = q_mask & (d2_now.amax(dim=1) < cfg.mapping.nn_valid_dist)
@@ -80,11 +90,11 @@ def _neighbours(q, q_mask, idx, points, cfg):
     return nx, ny, nz, nx - c[:, :1], ny - c[:, 1:2], nz - c[:, 2:], c, ok
 
 
-def _corner_fit(q, q_mask, idx, submap: MapState, cfg: LegoLoamConfig):
+def _corner_fit(q, q_mask, nbr, cfg: LegoLoamConfig):
     """Pose-independent corner fit at refresh time: 5-NN covariance line
     (centre, largest eigenvector) with the line-ratio gate.
     Returns (cx, cy, cz, vx, vy, vz, ok)."""
-    _, _, _, dx, dy, dz, c, ok = _neighbours(q, q_mask, idx, submap.corner_xyz, cfg)
+    _, _, _, dx, dy, dz, c, ok = _neighbours(q, q_mask, nbr, cfg)
     comps = (
         (dx * dx).mean(1), (dx * dy).mean(1), (dx * dz).mean(1),
         (dy * dy).mean(1), (dy * dz).mean(1), (dz * dz).mean(1),
@@ -109,10 +119,10 @@ def _corner_residuals(q, fit):
     return g, dist, torch.where(ok & (s > 0.1), s, 0.0)
 
 
-def _surf_fit(q, q_mask, idx, submap: MapState, cfg: LegoLoamConfig):
+def _surf_fit(q, q_mask, nbr, cfg: LegoLoamConfig):
     """Pose-independent surf fit at refresh time: 5-NN PCA plane plus the
     planarity gate. Returns (gx, gy, gz, d_off, ok)."""
-    nx, ny, nz, dx, dy, dz, c, ok = _neighbours(q, q_mask, idx, submap.surf_xyz, cfg)
+    nx, ny, nz, dx, dy, dz, c, ok = _neighbours(q, q_mask, nbr, cfg)
     comps = (
         (dx * dx).sum(1), (dx * dy).sum(1), (dx * dz).sum(1),
         (dy * dy).sum(1), (dy * dz).sum(1), (dz * dz).sum(1),
@@ -163,9 +173,8 @@ def scan_to_map(
     """6-DoF GN refinement from the prior (R0, t0). Returns (R, t, MapDiag)."""
     m = cfg.mapping
     dev = corner_xyz.device
-    enough = bool(
-        (submap.corner_mask.sum() > m.min_corner_map) & (submap.surf_mask.sum() > m.min_surf_map)
-    )
+    n_map_corner, n_map_surf = row_sum(submap.corner_mask), row_sum(submap.surf_mask)
+    enough = bool((n_map_corner > m.min_corner_map) & (n_map_surf > m.min_surf_map))
     surf_rn = torch.linalg.norm(surf_xyz, dim=1)
     eye6 = torch.eye(6, device=dev)
 
@@ -181,10 +190,8 @@ def scan_to_map(
         qs = surf_xyz @ R.T + t
         refresh = it % m.search_every == 0
         if refresh:
-            ic = _nn5(qc, submap.corner_xyz, submap.corner_mask, "mapping_corner")
-            isf = _nn5(qs, submap.surf_xyz, submap.surf_mask, "mapping_surf")
-            fit_c = _corner_fit(qc, corner_mask, ic.clamp(min=0).long(), submap, cfg)
-            fit_s = _surf_fit(qs, surf_mask, isf.clamp(min=0).long(), submap, cfg)
+            fit_c = _corner_fit(qc, corner_mask, _nn5(qc, submap.corner_xyz, submap.corner_mask, "mapping_corner"), cfg)
+            fit_s = _surf_fit(qs, surf_mask, _nn5(qs, submap.surf_xyz, submap.surf_mask, "mapping_surf"), cfg)
         nc, dc, wc = _corner_residuals(qc, fit_c)
         ns, ds_, ws = _surf_residuals(qs, fit_s, surf_rn)
         if m.corner_weight != 1.0:
@@ -241,8 +248,8 @@ def scan_to_map(
         n_corner=corner_mask.sum(),
         n_surf=surf_mask.sum(),
         rejected=rejected,
-        n_submap_corner=submap.corner_mask.sum().to(torch.int32),
-        n_submap_surf=submap.surf_mask.sum().to(torch.int32),
+        n_submap_corner=n_map_corner.to(torch.int32),
+        n_submap_surf=n_map_surf.to(torch.int32),
         n_sel=n_sel.to(torch.int32),
     )
     return R, t, diag

@@ -4,7 +4,9 @@ the global map around a pose, and the reload of a saved dense map.
 The keyframe store is read once per product: the resident slots (oldest
 first) are gathered on the device into one float32 block and copied to the
 host in one transfer; the transforms to the map frame and the voxel filters
-run in numpy, as in the reference.
+run in numpy, as in the reference. A store in row blocks over the ranks is
+gathered to every rank (`distributed.gather_rows`, so every rank calls a
+product), and rank 0 alone writes the files.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from .config import LegoLoamConfig
+from .distributed import gather_rows, is_writer
 from .io.pcd import load_pcd, save_pcd
 from .math import se3
 from .utils.metrics import write_pose_txt
@@ -43,7 +46,7 @@ def gather_keyframe_clouds(bstate, max_kf=None):
     sel = torch.from_numpy(np.ascontiguousarray(slots)).to(bstate.kf_t.device)
 
     def rows(x):
-        return x.index_select(0, sel).reshape(n, -1).to(torch.float32)
+        return gather_rows(x, sel).reshape(n, -1).to(torch.float32)
 
     block = torch.cat([
         rows(bstate.kf_R), rows(bstate.kf_t), rows(bstate.kf_time),
@@ -76,9 +79,12 @@ def save_map(bstate, out_dir: str, cfg: LegoLoamConfig, dense: bool = True):
     """Write cornerMap.pcd, surfaceMap.pcd, finalCloud.pcd (the two
     voxel-filtered at corner_leaf and surf_leaf), denseCloud.pcd (unfiltered),
     trajectory.pcd (keyframe positions) and pose.txt (keyframe x y z roll
-    pitch yaw t) under out_dir; returns out_dir."""
-    os.makedirs(out_dir, exist_ok=True)
+    pitch yaw t) under out_dir (rank 0 of a process group; the others
+    only take part in the gather); returns out_dir."""
     g = gather_keyframe_clouds(bstate)
+    if not is_writer():
+        return out_dir
+    os.makedirs(out_dir, exist_ok=True)
     m = cfg.mapping
 
     corner = _host_voxel_ds(g["corner"], m.corner_leaf)

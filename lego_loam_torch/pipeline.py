@@ -30,9 +30,16 @@ In a process group of more than one rank (`launch.init_from_args`), with
 `use_sharded_posegraph`, every graph solve is the whole-graph GN of
 `distributed.sharded_pose_graph_solver` over factors assembled on the host,
 each rank solving with its row block of them, as the reference does with
-more than one device; its cost gate reads the result back. A sharded
-keyframe store (`shard_backend`) is not ported yet and is refused there.
-On one rank both packages take the anchor-segment solve.
+more than one device; its cost gate reads the result back. With
+`shard_backend` the keyframe store and the submap lie in row blocks over
+the ranks (`distributed.shard_backend_state`): the state carries that
+layout, and each access to the store (the radius search, submap assembly
+and its 5-NN, the keyframe append, loop closure, the graph solves, the
+products and the checkpoint) goes through the store helpers of
+`distributed.py`, which take either layout; a caller may also lay out
+`bstate` itself. Every rank runs the same stream and ends with the same
+bits as one unsharded process; rank 0 alone writes files. On one rank both
+packages take the anchor-segment solve.
 """
 
 from __future__ import annotations
@@ -47,7 +54,16 @@ import torch.distributed as dist
 
 from .backend import BackendState, backend_step_ds, downsample_current_scan, init_backend_state
 from .config import LegoLoamConfig
-from .distributed import make_mesh, shard_rows, sharded_pose_graph_solver
+from .distributed import (
+    all_rows,
+    gather_rows,
+    is_writer,
+    make_mesh,
+    set_rows,
+    shard_backend_state,
+    shard_rows,
+    sharded_pose_graph_solver,
+)
 from .frontend import deskew_outliers, frontend_solve, imu_attitude, init_odometry_state, segment_features
 from .fusion import fuse_pose
 from .imu import integrate_imu, odom_prior_motion
@@ -94,13 +110,9 @@ class LegoLoamPipeline:
         if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1 and (
             cfg.distributed.use_sharded_posegraph or cfg.distributed.shard_backend
         ):
-            if cfg.distributed.shard_backend:
-                raise ValueError(
-                    f"shard_backend over {dist.get_world_size()} ranks: the sharded keyframe store is not ported "
-                    "yet (ROADMAP §1 item 7); set cfg.distributed.shard_backend=False"
-                )
             self._mesh = make_mesh()
-            self._solve_graph_sharded = sharded_pose_graph_solver(self._mesh, cfg)
+            if cfg.distributed.use_sharded_posegraph:
+                self._solve_graph_sharded = sharded_pose_graph_solver(self._mesh, cfg)
         self.cfg = cfg
         self.seed = seed
         self.device = torch.device(device)
@@ -108,6 +120,9 @@ class LegoLoamPipeline:
         self._ground_scores = ground_scores or self._draw_scores
         self.fstate: OdometryState = init_odometry_state(cfg, self.device)
         self.bstate: BackendState = init_backend_state(cfg, self.device)
+        if self._mesh is not None and cfg.distributed.shard_backend:
+            # the keyframe store and the submap in row blocks over the ranks
+            self.bstate = shard_backend_state(self._mesh, self.bstate)
         self.frame_idx = 0
         self._use_imu = cfg.pipeline.use_imu_undistortion
         self._use_odom = cfg.odometry.odom_prior_mode != "off"
@@ -564,20 +579,22 @@ class LegoLoamPipeline:
 
     def save_artifacts(self, out_dir: str):
         """Finalize, then write the reference's run artifacts (pose.txt,
-        mapt.txt, MapIterTimes.txt, LocalInfo.txt) under out_dir."""
+        mapt.txt, MapIterTimes.txt, LocalInfo.txt) under out_dir; in a
+        process group every rank finalizes and rank 0 writes."""
         self.finalize()
         from .utils.metrics import save_run_artifacts
 
-        save_run_artifacts(out_dir, self.trajectory, self.diagnostics)
+        if is_writer():
+            save_run_artifacts(out_dir, self.trajectory, self.diagnostics)
 
     def keyframe_trajectory(self):
         """Corrected keyframe poses (R (A,3,3), t (A,3), times (A,)) as
         numpy, oldest -> newest: the keyframe poses after loop-closure
         corrections, where the per-frame logs keep each pose as it was
         when its frame ran."""
-        slots = self.bstate.ordered_slots()
         bs = self.bstate
-        return bs.kf_R.cpu().numpy()[slots], bs.kf_t.cpu().numpy()[slots], bs.kf_time.cpu().numpy()[slots]
+        slots = bs.ordered_slots()
+        return tuple(all_rows(x).cpu().numpy()[slots] for x in (bs.kf_R, bs.kf_t, bs.kf_time))
 
     # -- loop closure -------------------------------------------------------
 
@@ -621,8 +638,8 @@ class LegoLoamPipeline:
     def _attempt(self, cand_slot: int, cur_slot: int, n_kf: int):
         bs = self.bstate
         return attempt_loop_closure(
-            bs.kf_R, bs.kf_t, bs.kf_corner_view(), bs.kf_corner_mask,
-            bs.kf_surf_view(), bs.kf_surf_mask, cand_slot, cur_slot, n_kf, self.cfg,
+            bs.kf_R, bs.kf_t, bs.kf_corner, bs.kf_corner_mask, bs.kf_surf, bs.kf_surf_mask, cand_slot, cur_slot,
+            n_kf, self.cfg,
         )
 
     def warmup_loop_closure(self):
@@ -741,11 +758,11 @@ class LegoLoamPipeline:
         bs = self.bstate
         self._solved_at = len(self.loop_factors)
         newR, newt, (ok, c0, c1, moved) = reduced_solve(
-            bs.kf_R, bs.kf_t, bs.kf_rel_R, bs.kf_rel_t, bs.n_kf, self._loop_buf, self.cfg
+            *(all_rows(x) for x in (bs.kf_R, bs.kf_t, bs.kf_rel_R, bs.kf_rel_t)), bs.n_kf, self._loop_buf, self.cfg
         )
         newest = torch.where(bs.n_kf > 0, (bs.n_kf - 1) % bs.capacity, 0).long().reshape(1)
-        bs.kf_R.copy_(newR)  # the input rows where the gate refused
-        bs.kf_t.copy_(newt)
+        set_rows(bs.kf_R, newR)  # the input rows where the gate refused
+        set_rows(bs.kf_t, newt)
         self.bstate = bs.replace(
             R_map=torch.where(ok, newR.index_select(0, newest)[0], bs.R_map),
             t_map=torch.where(ok, newt.index_select(0, newest)[0], bs.t_map),
@@ -835,8 +852,8 @@ class LegoLoamPipeline:
         younger = up(cj).long()
         factors = Factors(
             i=up(np.concatenate([ci, li])), j=up(np.concatenate([cj, lj])),
-            R=torch.cat([bs.kf_rel_R.index_select(0, younger), up(lR)]),
-            t=torch.cat([bs.kf_rel_t.index_select(0, younger), up(lt)]),
+            R=torch.cat([gather_rows(bs.kf_rel_R, younger), up(lR)]),
+            t=torch.cat([gather_rows(bs.kf_rel_t, younger), up(lt)]),
             info=up(info), mask=up(np.concatenate([cmask, lmask])),
         )
         active = torch.arange(K, device=dev) < n_kf
@@ -858,18 +875,18 @@ class LegoLoamPipeline:
                                 for x in factors))
         local = shard_rows(factors, self._mesh)
         bs = self.bstate
-        newR, newt = self._solve_graph_sharded(bs.kf_R, bs.kf_t, local, active)
-        moved = torch.max(torch.where(active, torch.linalg.norm(newt - bs.kf_t, dim=1), 0.0))
-        c0, c1, moved = torch.stack([graph_cost(bs.kf_R, bs.kf_t, factors), graph_cost(newR, newt, factors),
-                                     moved]).tolist()
+        R, t = all_rows(bs.kf_R), all_rows(bs.kf_t)
+        newR, newt = self._solve_graph_sharded(R, t, local, active)
+        moved = torch.max(torch.where(active, torch.linalg.norm(newt - t, dim=1), 0.0))
+        c0, c1, moved = torch.stack([graph_cost(R, t, factors), graph_cost(newR, newt, factors), moved]).tolist()
         ok = bool(np.isfinite(c1)) and c1 < c0
         if self.loop_diag:
             self.loop_diag[-1].update(graph_cost=[c0, c1], graph_max_move=moved, graph_accepted=ok)
         if not ok:
             return
         newR = se3.orthonormalize(newR)
-        bs.kf_R.copy_(newR)
-        bs.kf_t.copy_(newt)
+        set_rows(bs.kf_R, newR)
+        set_rows(bs.kf_t, newt)
         self.bstate = bs.replace(
             R_map=newR[newest].clone(), t_map=newt[newest].clone(),
             submap_center=torch.full_like(bs.submap_center, 1e9),

@@ -9,13 +9,23 @@
     python -m lego_loam_torch.run --preset VLP-16 --rosbag /path/to/bag --topic /velodyne_points
     python -m lego_loam_torch.run --preset VLP-16 --synthetic 100
     python -m lego_loam_torch.run --device cpu --synthetic 4 --max-frames 4
+    python -m lego_loam_torch.run --synthetic 100 --coordinator HOST:PORT --num-processes 2 --process-id 0
+    torchrun --nproc-per-node 4 -m lego_loam_torch.run --synthetic 100 --num-processes 4
 
 Runs on the GPU unless --device cpu is given; without a visible GPU it
-exits non-zero rather than run on the CPU. Writes the reference-parity
-artifact set (pose.txt, mapt.txt, MapIterTimes.txt, LocalInfo.txt) plus the
-map PCDs to --out; with --profile also each scan's mapping time (mapt.txt),
-a per-stage report and profile.json (stage means, scans/s and the CUDA
-kernels' launch counts of the run).
+exits non-zero rather than run on the CPU. With --coordinator or
+--num-processes it first joins a process group (`launch.init_from_args`:
+NCCL and one card a rank, or gloo with --device cpu; under torchrun the
+address and the rank come from its variables): every rank reads the same
+stream, the keyframe store lies in row blocks over the ranks
+(`shard_backend`), and rank 0 alone writes the artifacts and the
+checkpoint.
+
+Writes the reference-parity artifact set (pose.txt, mapt.txt,
+MapIterTimes.txt, LocalInfo.txt) plus the map PCDs to --out; with
+--profile also each scan's mapping time (mapt.txt), a per-stage report and
+profile.json (stage means, scans/s and the CUDA kernels' launch counts of
+the run).
 """
 
 from __future__ import annotations
@@ -29,9 +39,11 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import cuda as kcuda
 from .config import get_config
+from .distributed import is_writer
 from .pipeline import LegoLoamPipeline
 from .utils.profiling import StageTimer, synchronize
 
@@ -57,16 +69,14 @@ def parse_args(argv=None):
     # Re-localization mode (≙ ReMapping/HighDenseMapping launch flags +
     # /initialpose): localize the stream in a previously saved dense map.
     p.add_argument("--remap", help="saved map dir (denseCloud.pcd) to re-localize in instead of mapping")
-    # The reference's multi-host entry; kept so its command lines parse.
-    p.add_argument("--coordinator", help="multi-host coordinator addr:port (not ported yet)")
-    p.add_argument("--num-processes", type=int, default=None)
-    p.add_argument("--process-id", type=int, default=None)
+    # Multi-process entry: join the process group before building the
+    # pipeline, so it sees the world.
+    p.add_argument("--coordinator", help="process group address host:port (else MASTER_ADDR:MASTER_PORT)")
+    p.add_argument("--num-processes", type=int, default=None, help="world size (else WORLD_SIZE)")
+    p.add_argument("--process-id", type=int, default=None, help="this process's rank (else RANK)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="run on the GPU (default) or, when asked, on the CPU")
     args = p.parse_args(argv)
-    if args.coordinator or args.num_processes is not None or args.process_id is not None:
-        p.error("multi-process runs (--coordinator/--num-processes/--process-id) wait for the sharded keyframe "
-                "store that the default config asks for (shard_backend, ROADMAP §1 item 7)")
     if args.device == "cuda" and not torch.cuda.is_available():
         p.error("no CUDA device is visible; pass --device cpu to run on the CPU")
     if not (args.kitti or args.rosbag or args.synthetic):
@@ -192,16 +202,17 @@ def _frames(stream, max_frames, timer):
 
 def _write_profile(out_dir, timer, n, dt, device):
     """profile.json: per-stage mean ms, scans/s and the CUDA kernels'
-    launches (by kernel and by call site) of this run."""
-    os.makedirs(out_dir, exist_ok=True)
+    launches (by kernel and by call site) of this run (written by rank 0)."""
     prof = {
         "scans": n, "seconds": dt, "scans_per_s": n / max(dt, 1e-9),
         "stages_mean_ms": {k: timer.mean_ms(k) for k in sorted(timer.totals)},
         "launches": dict(kcuda.LAUNCHES), "launches_by_site": dict(kcuda.SITES),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
     }
-    with open(os.path.join(out_dir, "profile.json"), "w") as f:
-        json.dump(prof, f, indent=1)
+    if is_writer():
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "profile.json"), "w") as f:
+            json.dump(prof, f, indent=1)
     print(timer.report())
     print(f"kernel launches {prof['launches']}, by site {prof['launches_by_site']}")
 
@@ -228,8 +239,9 @@ def relocalize(args, cfg, device, timer):
     dt = time.perf_counter() - t0
     n = len(traj)
     print(f"localized {n} scans in {dt:.3f} s ({n / max(dt, 1e-9):.3f} scans/s)")
-    os.makedirs(args.out, exist_ok=True)
-    if traj:
+    if is_writer():
+        os.makedirs(args.out, exist_ok=True)
+    if traj and is_writer():
         np.savetxt(os.path.join(args.out, "relocalized.txt"), torch.stack(traj).cpu().numpy())
     if args.profile:
         _write_profile(args.out, timer, n, dt, device)
@@ -237,7 +249,20 @@ def relocalize(args, cfg, device, timer):
 
 def main(argv=None):
     args = parse_args(argv)
-    device = torch.device(args.device)
+    if not (args.coordinator or args.num_processes):
+        return _run(args, torch.device(args.device))
+    # as the reference: join the group before the pipeline is built
+    from . import launch
+
+    device = launch.init_from_args(args.coordinator, args.num_processes, args.process_id, device=args.device)
+    try:
+        _run(args, device)
+        dist.barrier()  # rank 0 hosts the group's store: it leaves last
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, device):
     cfg = build_config(args)
     timer = StageTimer(sync=args.profile)
     if args.remap:
@@ -269,13 +294,15 @@ def main(argv=None):
     from .mapproducts import save_map
 
     save_map(pipe.bstate, args.out, cfg)
-    print(f"artifacts written to {args.out}")
+    if is_writer():
+        print(f"artifacts written to {args.out}")
 
     if args.checkpoint:
         from . import checkpoint
 
         checkpoint.save(pipe, args.checkpoint)
-        print(f"state saved to {args.checkpoint}")
+        if is_writer():
+            print(f"state saved to {args.checkpoint}")
 
 
 if __name__ == "__main__":

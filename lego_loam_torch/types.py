@@ -19,6 +19,27 @@ class _Base:
         return dataclasses.replace(self, **kw)
 
 
+def named_leaves(state, prefix=""):
+    """(dotted name, leaf) of each leaf of a dataclass tree, in
+    field-declaration order with nested dataclasses expanded in place
+    ("submap.corner_xyz"): the order `jax.tree.flatten` gives the
+    reference's flax structs."""
+    out = []
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        out.extend(named_leaves(v, f"{prefix}{f.name}.") if dataclasses.is_dataclass(v) else [(prefix + f.name, v)])
+    return out
+
+
+def map_leaves(state, fn, prefix=""):
+    """The dataclass tree with each leaf replaced by fn(dotted name, leaf)."""
+    kw = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        kw[f.name] = map_leaves(v, fn, f"{prefix}{f.name}.") if dataclasses.is_dataclass(v) else fn(prefix + f.name, v)
+    return dataclasses.replace(state, **kw)
+
+
 @dataclasses.dataclass(frozen=True)
 class ScanGrid(_Base):
     """Stage-1 output: the (H, W) range-image view of one scan."""

@@ -14,8 +14,8 @@ exactly, roll/pitch/yaw and rotations within 1e-6 (a few float32 ulps:
 the reference converts through jnp, the port batches through torch);
 a run checkpointed at frame 2 and resumed in a fresh pipeline ends within
 2e-2 m of the uninterrupted CLI run (tests/test_cli_e2e.py:126); the IMU
-and odometry topics and --resume run. The CLI refuses the multi-process
-flags and a missing GPU without --device cpu."""
+and odometry topics and --resume run. The multi-process flags reach the
+group's join; the CLI refuses a missing GPU without --device cpu."""
 
 import argparse
 import json
@@ -206,14 +206,30 @@ def test_rosbag_imu_and_odometry_streams(tmp_path):
 
 
 def test_cli_refusals(tmp_path, monkeypatch, capsys):
-    """Multi-process flags wait for the sharded keyframe store (ROADMAP §1
-    item 7); without a GPU the default device is refused rather than
-    replaced by the CPU."""
-    for argv in (["--coordinator", "localhost:1234"], ["--num-processes", "2"], ["--process-id", "0"]):
-        with pytest.raises(SystemExit) as e:
-            run.main(["--device", "cpu", "--synthetic", "1", "--out", str(tmp_path), *argv])
-        assert e.value.code != 0
-    assert "ROADMAP §1 item 7" in capsys.readouterr().err
+    """The multi-process flags parse and reach `launch.init_from_args`
+    (which joins the group before any pipeline is built; --process-id alone
+    joins nothing, as in the reference); without a GPU the default device
+    is refused rather than replaced by the CPU."""
+    from lego_loam_torch import launch
+
+    calls = []
+
+    class Joined(Exception):
+        pass
+
+    def init_from_args(*args, **kw):
+        calls.append((args, kw))
+        raise Joined
+
+    with monkeypatch.context() as mp:
+        mp.setattr(launch, "init_from_args", init_from_args)
+        mp.setattr(run, "LegoLoamPipeline", None)  # never reached
+        for argv in (["--coordinator", "localhost:1234", "--num-processes", "2", "--process-id", "1"],
+                     ["--num-processes", "2"]):
+            with pytest.raises(Joined):
+                run.main(["--device", "cpu", "--synthetic", "1", "--out", str(tmp_path), *argv])
+    assert calls == [(("localhost:1234", 2, 1), {"device": "cpu"}), ((None, 2, None), {"device": "cpu"})]
+    assert run.parse_args(["--device", "cpu", "--synthetic", "1", "--process-id", "0"]).process_id == 0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as e:
         run.main(["--synthetic", "1", "--out", str(tmp_path)])

@@ -8,7 +8,8 @@ reference loads it and runs `_optimize_graph()` in a subprocess with two
 virtual devices (a Mesh in this process would disturb later programs, as
 tests/test_sharded_pipeline.py notes); the port loads the same file in two
 gloo ranks (tests/_torch_ranks.py) and does the same, then processes one
-scan. Tolerances: the ranks bit-equal; the keyframe poses within 1e-4 of
+scan, and a pipeline with `shard_backend` on lays its store out in row
+blocks. Tolerances: the ranks bit-equal; the keyframe poses within 1e-4 of
 the reference's (its own bound between mesh and single-device solves)."""
 
 import dataclasses
@@ -127,7 +128,9 @@ def test_sharded_pipeline_runs_on(sides):
 
 
 def test_shard_backend_refused(sides):
-    """Two ranks with shard_backend on: refused, naming the ROADMAP item."""
+    """Two ranks with shard_backend on, which the port refused until its
+    sharded keyframe store: now the store lies in row blocks, each rank
+    holding 32 of its 64 rows."""
     _, ranks = sides
     for r in ranks:
-        assert "ROADMAP §1 item 7" in str(r["pipe_refusal"])
+        assert r["pipe_store_rows"].tolist() == [32, 64]
