@@ -20,12 +20,17 @@ Phases, each printing a progress line:
      recorded in the slice's warm-up run (these clouds are ordered along
      the scan, unlike the random ones);
   5. the slice: `vlp16()` at full width over 32 swept scans of a straight
-     drive through `LegoLoamPipeline.run_chunked`; map ATE < 0.1 m, every
-     output finite, both kernels launched on the path and K2 at all four
-     call sites (odometry and mapping, corner and surf clouds); then the
-     per-scan entry point, `run` over its first 4 scans through
-     `process_scan` (float32 points projected on the card), with the same
-     checks;
+     drive through `LegoLoamPipeline.run_chunked`, its frame steps captured
+     as CUDA graphs (the default): map ATE < 0.1 m, every output finite,
+     both kernels launched on the path and K2 at all four call sites
+     (odometry and mapping, corner and surf clouds; a captured launch
+     counted at each replay), the steps captured and replayed with no
+     recapture; the same scans with `graphs=False` (staged chunk by chunk,
+     the second chunk of 16 under `torch.cuda.set_sync_debug_mode("error")`:
+     no synchronizing call inside it): map, odometry and fused positions
+     and map attitudes bit-identical; then the per-scan entry point, `run` over its
+     first 4 scans through `process_scan` (float32 points projected on the
+     card, the same graphs at C = 1), with the same checks;
   6. short drives of `vlp32c()` and `hdl64e()` at full width, 8 scans each
      in one chunk with loop closure off (the settings of
      tests/test_presets_e2e.py at the presets' own capacities): finite
@@ -41,7 +46,11 @@ Phases, each printing a progress line:
      clouds against its twin and a float64 brute force, each tolerance
      that pair's own float32 rounding, the attempt's and the solve's
      times, and `reduced_solve` on the card against the same call on the
-     CPU;
+     CPU; then the lap's final state (`checkpoint.save`) loaded into a
+     fresh pipeline, graphed and with `graphs=False`, each continued over
+     the course's next 64 scans (frames 448-511, revisiting): at least one
+     attempt each and the final keyframes bit-identical (the applied
+     solves and `checkpoint.load` write the state in place);
   7b. the IMU lap: the same 448 scans with the lap's configuration plus
      `use_imu_undistortion=True` and `odom_prior_mode="init"`, 200 Hz IMU
      windows and a wheel-odometry stream made from the course's poses,
@@ -66,7 +75,7 @@ Phases, each printing a progress line:
   7f. the native library (g++ from native/lego_native.cpp) against its
      plain twins on the fixture's scans: prep_cloud and the ScanFeeder
      stream bit-equal;
-  7g. the ESKF study: `run_eskf` over a generated 3,000-tick turn on the
+  7g. the ESKF study: `run_eskf` over a generated 1,500-tick turn on the
      card and, in a spawned process meanwhile, on the CPU (positions
      within 1e-3 m, RMSE < 0.1 m), timed;
   7h. the multi-device solves, in a child process started through
@@ -92,16 +101,20 @@ Phases, each printing a progress line:
      shard_backend_state`): map, odometry and fused poses and map attitudes
      bit-identical to phase 5's unsharded run, map ATE < 0.1 m, K2 launched
      at mapping_corner and mapping_surf, the state's bytes on the rank
-     printed; the lap's saved state loaded into a sharded and an unsharded
-     pipeline, each continued over the lap course's next 64 frames
-     (448-511, revisiting): at least one attempt on the sharded store,
-     final keyframe poses bit-identical, K2 launched at loop_icp; the CLI
+     printed; the lap's saved state loaded into a sharded pipeline and
+     continued over the lap course's next 64 frames (448-511, revisiting):
+     at least one attempt on the sharded store, final keyframe poses
+     bit-identical to the unsharded continuation of phase 7 (graphed), K2
+     launched at loop_icp; the CLI
      joining a group of one (--coordinator, --num-processes 1,
      --process-id 0) over 7c's KITTI fixture: exit 0 and 7c's pose.txt;
      each part timed;
-  8. torch.profiler over one warm chunk of 4 scans: device time and device
-     kernels per scan, the device's busy share, the costliest kernels
-     ("not measured" where the profiler cannot trace the card);
+  8. the frame step in its steady state, graphed, eager (`graphs=False`)
+     and host-branching (`sync_free=False`): after warm chunks of 4 (two
+     graphed, for the captures; one otherwise), one chunk timed, one under `set_sync_debug_mode("warn")` (host
+     synchronizations a frame) and one under torch.profiler (device time
+     and device kernels per scan, the device's busy share, the costliest
+     kernels; "not measured" where the profiler cannot trace the card);
   9. times with CUDA events after warm-up: K1 on a 16-scan chunk at each
      height and K2 at the path's shapes (loop_icp's and mapping_sharded's
      included), a call (host included) and the
@@ -109,7 +122,9 @@ Phases, each printing a progress line:
      each beside its twin and its bound (and, for K2, torch.cdist +
      torch.topk, a yardstick the port never calls), and K2 at the mapping
      sites' row-block shapes over 2 and 4 ranks; the slice's scans/s and
-     peak memory.
+     peak memory; a line of the graphs' captures, replays, recaptures and
+     capture seconds and of scans/s, busy share and host synchronizations
+     a frame, graphed against eager.
 
 Prints one JSON line of kernel records, then `{"ok": true, ...}` last.
 Exits non-zero on any failure, or at once when no CUDA device is visible.
@@ -142,7 +157,9 @@ N_SCAN_RUN = 4  # scans of the per-scan `run`
 # the paths whose launches the kernels line reports, each counted alone
 PATHS = ("slice", "scan_run", "lap", "imu_lap", "cli", "reloc", "dist", "shard")
 N_CLI = 64  # swept scans of the KITTI / rosbag2 fixture (tools/make_fixtures.py's course)
-ESKF_TICKS = 3000  # 30 s of sensor data (5,000 until the script grew by phase 7h)
+# 15 s of sensor data (5,000 until the script grew by phase 7h, 3,000 until
+# it grew by the graphed and eager comparisons)
+ESKF_TICKS = 1500
 ROOT = Path(__file__).resolve().parent
 K2_SITES = ("odometry_corner", "odometry_surf", "mapping_corner", "mapping_surf")
 # The lap drive: bench.py's flagship configuration over a shorter campus
@@ -454,10 +471,10 @@ def recording_map_call(run):
     rec = {}
     fn = backend.scan_to_map
 
-    def call(c_xyz, c_m, s_xyz, s_m, R0, t0, submap, cfg):
+    def call(c_xyz, c_m, s_xyz, s_m, R0, t0, submap, cfg, sync_free=False):
         rec.update(q=s_xyz.clone(), q_mask=s_m.clone(), R=R0.clone(), t=t0.clone(),
                    map=submap.surf_xyz.clone(), map_mask=submap.surf_mask.clone())
-        return fn(c_xyz, c_m, s_xyz, s_m, R0, t0, submap, cfg)
+        return fn(c_xyz, c_m, s_xyz, s_m, R0, t0, submap, cfg, sync_free)
 
     backend.scan_to_map = call
     try:
@@ -477,27 +494,74 @@ def check_k2_on_path(seen):
                for site, (q, t, m, g) in seen.items())
 
 
-def run_slice(cfg, scans, gt):
+def count_syncs(fn):
+    """fn() under `torch.cuda.set_sync_debug_mode("warn")`: (what it
+    returned, the number of synchronizing CUDA calls torch reported)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum(1 for w in caught if "synchroniz" in str(w.message))
+
+
+def slice_drive(cfg, scans, no_sync_chunk=None, **kw):
+    """A fresh pipeline (`kw`: sync_free, graphs) over the slice's scans
+    through `run_chunked`, timed, with the launch counts set to 0 just
+    before and read just after. With no_sync_chunk, the same drive by
+    hand (`stage_chunk` + `process_chunk` of each chunk, then the result)
+    with that chunk under `torch.cuda.set_sync_debug_mode("error")`: any
+    synchronizing CUDA call inside it raises. Returns (pipeline, its
+    result, seconds, launches, launches by site, peak GiB)."""
     from lego_loam_torch import cuda as kcuda
+    from lego_loam_torch.pipeline import LegoLoamPipeline
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = LegoLoamPipeline(cfg, seed=0, **kw)
+    kcuda.reset_counts()
+    t0 = time.perf_counter()
+    if no_sync_chunk is None:
+        out = pipe.run_chunked(scans, chunk=CHUNK)
+    else:
+        for k, s in enumerate(range(0, len(scans), CHUNK)):
+            xs = pipe.stage_chunk(pipe._prep_many(scans[s:s + CHUNK]))
+            if k == no_sync_chunk:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                pipe.process_chunk(xs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        out = pipe._result()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return (pipe, out, dt, dict(kcuda.LAUNCHES), dict(kcuda.SITES),
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def run_slice(cfg, scans, gt):
+    """The slice graphed (the default), then the same scans with
+    `graphs=False`: the first run's checks, and the two runs' map,
+    odometry and fused positions and map attitudes bit-identical."""
     from lego_loam_torch.pipeline import LegoLoamPipeline
 
     # warm-up on other scans: loads the kernels, fills the allocator, and
     # records the clouds of one real call at each of K2's call sites
+    # (eagerly: a recording inside a captured graph would run at replay)
     seen, map_call = recording_k2_sites(
-        lambda: recording_map_call(lambda: LegoLoamPipeline(cfg, seed=1).run_chunked(scans[:4], chunk=4))
+        lambda: recording_map_call(
+            lambda: LegoLoamPipeline(cfg, seed=1, graphs=False).run_chunked(scans[:4], chunk=4))
     )
     torch.cuda.synchronize()
     path_err = check_k2_on_path(seen)
-    torch.cuda.reset_peak_memory_stats()
-    pipe = LegoLoamPipeline(cfg, seed=0)
-    kcuda.reset_counts()
-    t0 = time.perf_counter()
-    out = pipe.run_chunked(scans, chunk=CHUNK)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = dict(kcuda.LAUNCHES)
-    sites = dict(kcuda.SITES)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    pipe, out, dt, launches, sites, peak = slice_drive(cfg, scans)
+    stats = dict(pipe.graph_stats)
 
     for k in ("map_positions", "odom_positions", "fused_positions"):
         a = np.asarray(out[k])
@@ -507,18 +571,40 @@ def run_slice(cfg, scans, gt):
         raise AssertionError("non-finite map attitude")
     ate_map = ate(out["map_positions"], gt)
     ate_odom = ate(out["odom_positions"], gt)
-    log(f"slice: {len(scans)} scans in {dt:.3f} s = {len(scans) / dt:.3f} scans/s, peak device memory {peak:.3f} GiB")
+    log(f"slice: {len(scans)} scans in {dt:.3f} s = {len(scans) / dt:.3f} scans/s (graphed, first use and "
+        f"captures included), peak device memory {peak:.3f} GiB")
     log(f"slice: map ATE {ate_map:.4f} m, odometry ATE {ate_odom:.4f} m (no alignment)")
-    log(f"slice: launches {launches}, by site {sites}")
+    log(f"slice: graphs {stats} (capture_s: seconds spent capturing)")
+    log(f"slice: launches {launches}, by site {sites} (a captured launch counted at each replay)")
     if not ate_map < 0.1:
         raise AssertionError(f"map ATE {ate_map:.4f} m >= 0.1 m")
     if not (launches.get("cc_label_prop", 0) > 0 and all(sites.get(f"knn_top5@{k}", 0) > 0 for k in K2_SITES)):
         raise AssertionError(f"a kernel of the path was not launched: {launches} {sites}")
+    if not (stats["captures"] >= 3 and stats["replays"] > 0 and stats["recaptures"] == 0):
+        raise AssertionError(f"slice: the steps were not captured and replayed as expected: {stats}")
     poses = {k: np.asarray(out[k]) for k in ("map_positions", "odom_positions", "fused_positions")}
     poses["map_rpys"] = np.asarray(pipe.trajectory["rpys"])
+    del pipe
+
+    # the same scans with the steps run eagerly, the second chunk under
+    # set_sync_debug_mode("error")
+    epipe, eout, edt, elaunches, _, epeak = slice_drive(cfg, scans, graphs=False, no_sync_chunk=1)
+    log(f"no-sync: the eager run's second chunk of {CHUNK} scans ran under set_sync_debug_mode('error') with no "
+        f"synchronizing call")
+    eposes = {k: np.asarray(eout[k]) for k in ("map_positions", "odom_positions", "fused_positions")}
+    eposes["map_rpys"] = np.asarray(epipe.trajectory["rpys"])
+    same = {k: bool(np.array_equal(poses[k], eposes[k])) for k in poses}
+    log(f"slice: graphs=False {len(scans) / edt:.3f} scans/s ({edt:.3f} s), peak {epeak:.3f} GiB, launches "
+        f"{elaunches}; graphed and eager bit-identical: {same} (max differences "
+        f"{ {k: float(np.abs(poses[k] - eposes[k]).max()) for k in poses} })")
+    if not all(same.values()):
+        raise AssertionError(f"slice: the graphed run differs from graphs=False: {same}")
+    del epipe
     return {"scans_per_s": len(scans) / dt, "scans": len(scans), "seconds": dt, "peak_gib": peak,
             "ate_map_m": ate_map, "ate_odom_m": ate_odom, "launches_by_site": sites,
-            "k2_path_max_abs_err": path_err}, launches, map_call, poses
+            "k2_path_max_abs_err": path_err, "graphs": stats, "eager_scans_per_s": len(scans) / edt,
+            "eager_seconds": edt, "eager_peak_gib": epeak, "graphed_eager_bit_identical": same}, \
+        launches, map_call, poses
 
 
 def run_per_scan(cfg, scans, gt):
@@ -605,11 +691,12 @@ def lap_course(cfg):
     (1 cm noise, seed 100 + i), made before any timing."""
     from lego_loam_torch.io.synthetic import campus_world, lap_trajectory, render_scan_swept
 
-    poses = lap_trajectory(2, straight_frames=LAP_STRAIGHT, turn_frames=LAP_TURN)[:N_LAP]
-    world = campus_world(poses)
+    poses = lap_trajectory(2, straight_frames=LAP_STRAIGHT, turn_frames=LAP_TURN)
+    world = campus_world(poses[:N_LAP])
     scans = [render_scan_swept(poses[max(i - 1, 0)], poses[i], cfg, world, noise=0.01, seed=100 + i)
-             for i in range(N_LAP)]
-    return poses, np.stack([t for _, t in poses]), scans
+             for i in range(N_LAP + N_CONT)]
+    poses = poses[:N_LAP]
+    return poses, np.stack([t for _, t in poses]), scans[:N_LAP], scans[N_LAP:]
 
 
 def check_reduced_solve(pipe):
@@ -1304,11 +1391,12 @@ def shard_phase(d, mesh) -> dict:
        launched at mapping_corner and mapping_surf; the store's bytes on
        this rank printed;
     2. the lap's saved state (phase 7's `checkpoint.save`) loaded into a
-       pipeline whose store lies in row blocks and into an unsharded one;
-       each runs the next N_CONT scans of the lap course (frames
-       448-511, revisiting) through `run_chunked(chunk=32)`: at least one
-       loop attempt on the sharded store, the final keyframe poses
-       bit-identical, K2 launched at loop_icp;
+       pipeline whose store lies in row blocks, which runs the next N_CONT
+       scans of the lap course (frames 448-511, revisiting) through
+       `run_chunked(chunk=32)`: at least one loop attempt on the sharded
+       store, the final keyframe poses bit-identical to the parent's
+       unsharded graphed continuation (`run_lap_continuation`), K2
+       launched at loop_icp;
     3. `python -m lego_loam_torch.run` over phase 7c's KITTI fixture,
        joining its own group (--coordinator/--num-processes 1/--process-id
        0): exit 0, and pose.txt equal to 7c's as text.
@@ -1319,7 +1407,6 @@ def shard_phase(d, mesh) -> dict:
     from lego_loam_torch import cuda as kcuda
     from lego_loam_torch import distributed as D
     from lego_loam_torch.config import vlp16
-    from lego_loam_torch.io.synthetic import campus_world, lap_trajectory, render_scan_swept
     from lego_loam_torch.pipeline import LegoLoamPipeline
     from lego_loam_torch.types import named_leaves
 
@@ -1362,18 +1449,10 @@ def shard_phase(d, mesh) -> dict:
 
     # 2. the lap's state, continued over the revisit frames 448-511
     lcfg = lap_config()
-    t0 = time.perf_counter()
-    poses = lap_trajectory(2, straight_frames=LAP_STRAIGHT, turn_frames=LAP_TURN)
-    world = campus_world(poses[:N_LAP])  # the world of phase 7's course
-    cont = [render_scan_swept(poses[i - 1], poses[i], lcfg, world, noise=0.01, seed=100 + i)
-            for i in range(N_LAP, N_LAP + N_CONT)]
-    render_s = time.perf_counter() - t0
+    cont = list(np.load(os.path.join(d, "lap_cont_scans.npy")))  # rendered with the lap (`lap_course`)
     ckpt = os.path.join(d, "lap.npz")
-    plain = checkpoint.load(LegoLoamPipeline(lcfg, seed=0), ckpt)
-    _, plain_s, _, _ = counted(lambda: plain.run_chunked(cont, chunk=LAP_CHUNK))
-    kR_plain, kt_plain, _ = plain.keyframe_trajectory()
-    del plain
-    gc.collect()
+    with np.load(os.path.join(d, "lap_cont_kf.npz")) as f:  # the parent's graphed unsharded continuation
+        kR_plain, kt_plain, plain_s = f["R"], f["t"], float(f["seconds"])
     lap = LegoLoamPipeline(lcfg, seed=0)
     lap.bstate = D.shard_backend_state(mesh, lap.bstate)
     checkpoint.load(lap, ckpt)  # keeps the row blocks
@@ -1384,7 +1463,7 @@ def shard_phase(d, mesh) -> dict:
     attempts = sum(1 for r in lap.loop_diag if "icp_fitness" in r)
     kf_same = bool(np.array_equal(kR, kR_plain) and np.array_equal(kt, kt_plain))
     log(f"shard: lap state (frame {N_LAP}, {len(kt)} keyframes at the end) continued over {N_CONT} revisit "
-        f"frames (rendered in {render_s:.1f} s): unsharded {plain_s:.3f} s, sharded {lap_s:.3f} s; on the sharded "
+        f"frames: unsharded (graphed, the parent's run) {plain_s:.3f} s, sharded (eager) {lap_s:.3f} s; on the sharded "
         f"store {attempts} attempts, {len(lap.loop_factors)} loop factors "
         f"{[(f.i, f.j, round(f.fitness, 4)) for f in lap.loop_factors[-3:]]}; final keyframe poses bit-identical: "
         f"{kf_same} (max |t| difference {float(np.abs(kt - kt_plain).max()):.3e} m); launches "
@@ -1438,40 +1517,96 @@ def run_dist(d):
     return res, tuple(x.cuda() for x in clouds)
 
 
-def profile_slice(cfg, scans, wall_ms_per_scan):
-    """Device time per scan under torch.profiler over one warm chunk, and
-    its share of the unprofiled wall time per scan (the profiler slows the
-    host, not the kernels). Prints the kernels that take the most."""
+def profile_slice(cfg, scans, mode, **kw):
+    """One frame step (`kw`: sync_free, graphs) in its steady state: a
+    fresh pipeline over chunks of 4 of the slice's scans (staged before),
+    chunks to warm up (first use; graphed, two for the captures), then one chunk timed, one
+    under `count_syncs` (host synchronizations per frame) and one under
+    torch.profiler: device time and device kernels per scan and the
+    device's busy share of the timed chunk's wall time per scan (the
+    profiler slows the host, not the kernels). Prints the kernels that take
+    the most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from lego_loam_torch.pipeline import LegoLoamPipeline
 
-    pipe = LegoLoamPipeline(cfg, seed=2)
-    pipe.process_chunk(scans[:4])
+    n, warm = 4, 2 if kw.get("graphs", True) else 1  # graphed: the prepass is captured at its second chunk
+    pipe = LegoLoamPipeline(cfg, seed=2, **kw)
+    xs = [pipe.stage_chunk(pipe._prep_many(scans[s:s + n])) for s in range(0, (warm + 3) * n, n)]
+    for x in xs[:warm]:
+        pipe.process_chunk(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.process_chunk(xs[warm])
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    _, syncs = count_syncs(lambda: pipe.process_chunk(xs[warm + 1]))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pipe.process_chunk(scans[4:8])
+        pipe.process_chunk(xs[warm + 2])
         torch.cuda.synchronize()
+    res = {"wall_ms_per_scan": wall_ms, "scans_per_s": 1e3 / wall_ms, "syncs_per_frame": syncs / n,
+           "graphs": dict(pipe.graph_stats)}
+    log(f"profile {mode}: {1e3 / wall_ms:.3f} scans/s in the steady state ({wall_ms:.2f} ms a scan), "
+        f"{syncs / n:.2f} host synchronizations a frame, graphs {pipe.graph_stats}")
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     if not kernels:  # the profiler may be unable to trace the card; the kernel times do not need it
-        log("profile: the profiler saw no device kernel; device time per scan not measured")
-        return {"device_ms_per_scan": None, "device_kernels_per_scan": None, "device_busy": None,
+        log(f"profile {mode}: the profiler saw no device kernel; device time per scan not measured")
+        return {**res, "device_ms_per_scan": None, "device_kernels_per_scan": None, "device_busy": None,
                 "kernel_ms_per_scan": None}
-    n = 4
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     launches = sum(e.count for e in kernels) / n
-    busy = dev_ms / wall_ms_per_scan
-    log(f"profile: {dev_ms:.3f} ms of device time and {launches:.0f} device kernels per scan; "
-        f"device busy {100 * busy:.1f}% of the unprofiled {wall_ms_per_scan:.1f} ms per scan")
+    busy = dev_ms / wall_ms
+    log(f"profile {mode}: {dev_ms:.3f} ms of device time and {launches:.0f} device kernels per scan; "
+        f"device busy {100 * busy:.1f}% of the unprofiled {wall_ms:.2f} ms per scan")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     for e in top:
         log(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/scan {e.count / n:7.1f} calls/scan  {e.key[:90]}")
     ours = {k: sum(e.self_device_time_total for e in kernels if k in e.key) / 1e3 / n
             for k in ("cc_label_prop", "knn_top5")}
-    log(f"profile: K1 {ours['cc_label_prop']:.4f} ms/scan, K2 {ours['knn_top5']:.4f} ms/scan of device time")
-    return {"device_ms_per_scan": dev_ms, "device_kernels_per_scan": launches, "device_busy": busy,
+    log(f"profile {mode}: K1 {ours['cc_label_prop']:.4f} ms/scan, K2 {ours['knn_top5']:.4f} ms/scan of device time")
+    return {**res, "device_ms_per_scan": dev_ms, "device_kernels_per_scan": launches, "device_busy": busy,
             "kernel_ms_per_scan": ours}
+
+
+def run_lap_continuation(cfg, ckpt, cont, out):
+    """The lap's saved state (frame N_LAP, `checkpoint.save` at the end of
+    the lap) loaded into a fresh unsharded pipeline, graphed, and into one
+    with `graphs=False`; each continued over the lap course's next N_CONT
+    scans (frames 448-511, revisiting) through `run_chunked(chunk=32)`.
+    Needs at least one loop attempt in each, and final keyframe poses and
+    times bit-identical: `checkpoint.load` and the applied graph solves
+    write the state in place, where the captured steps read it. The
+    graphed run's final keyframes go to `out` (phase 7i's unsharded
+    reference)."""
+    from lego_loam_torch import checkpoint
+    from lego_loam_torch.pipeline import LegoLoamPipeline
+
+    res = {}
+    for mode, kw in (("graphed", {}), ("eager", {"graphs": False})):
+        gc.collect()
+        pipe = checkpoint.load(LegoLoamPipeline(cfg, seed=0, **kw), ckpt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.run_chunked(cont, chunk=LAP_CHUNK)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        kf = pipe.keyframe_trajectory()
+        if mode == "graphed":
+            np.savez(out, R=kf[0], t=kf[1], seconds=dt)
+        attempts = sum(1 for r in pipe.loop_diag if "icp_fitness" in r)
+        solves = [r["graph_accepted"] for r in pipe.loop_diag if "graph_accepted" in r]
+        res[mode] = {"seconds": dt, "attempts": attempts, "solves": solves, "kf": kf, "graphs": dict(pipe.graph_stats)}
+        log(f"lap continuation {mode}: frames {N_LAP}-{N_LAP + N_CONT - 1} from the lap's checkpoint in {dt:.3f} s, "
+            f"{attempts} attempts, graph solves {solves}, {len(kf[1])} keyframes, graphs {pipe.graph_stats}")
+        del pipe
+    same = all(np.array_equal(a, b) for a, b in zip(res["graphed"].pop("kf"), res["eager"].pop("kf")))
+    log(f"lap continuation: final keyframe poses and times bit-identical, graphed and eager: {same}")
+    if not (same and res["graphed"]["attempts"] >= 1 and res["eager"]["attempts"] >= 1):
+        raise AssertionError(f"lap continuation: bit-identical {same}, {res}")
+    res["kf_bit_identical"] = same
+    return res
 
 
 def main() -> int:
@@ -1522,13 +1657,17 @@ def main() -> int:
     np.save(os.path.join(dd, "slice_scans.npy"), np.stack(scans))  # phase 7i's sharded slice
     np.savez(os.path.join(dd, "slice_poses.npz"), gt=gt, **slice_poses)
     summary["scan_run"] = run_per_scan(cfg, scans, gt)
-    summary.update(profile_slice(cfg, scans, 1e3 * summary["seconds"] / summary["scans"]))
+    summary["profile"] = {mode: profile_slice(cfg, scans, mode, **kw) for mode, kw in (
+        ("graphed", {}), ("eager", {"graphs": False}), ("host-branching", {"sync_free": False, "graphs": False}))}
     summary["presets"] = {name: drive_preset(name, *args) for name, args in presets.items()}
     lcfg = lap_config()
     t0 = time.perf_counter()
-    lap_poses, lap_gt, lap_scans = lap_course(lcfg)
-    log(f"lap: rendered {N_LAP} swept scans in {time.perf_counter() - t0:.1f} s")
+    lap_poses, lap_gt, lap_scans, cont_scans = lap_course(lcfg)
+    log(f"lap: rendered {N_LAP + N_CONT} swept scans in {time.perf_counter() - t0:.1f} s")
+    np.save(os.path.join(dd, "lap_cont_scans.npy"), np.stack(cont_scans))  # phase 7i's continuation
     summary["lap"], icp_clouds = run_lap(lcfg, lap_gt, lap_scans, os.path.join(dd, "lap.npz"))
+    summary["lap_continuation"] = run_lap_continuation(lcfg, os.path.join(dd, "lap.npz"), cont_scans,
+                                                       os.path.join(dd, "lap_cont_kf.npz"))
     icfg = dataclasses.replace(
         lcfg, pipeline=dataclasses.replace(lcfg.pipeline, use_imu_undistortion=True),
         odometry=dataclasses.replace(lcfg.odometry, odom_prior_mode="init"),
@@ -1613,13 +1752,16 @@ def main() -> int:
             tb, mb = t[: t.shape[0] // W].contiguous(), m[: t.shape[0] // W].contiguous()
             ms = time_ms(lambda: top5_l2(q, tb, mb))
             dev_ms = kernel_ms(lambda: top5_l2(q, tb, mb))
-            ops = q.shape[0] * int(mb.sum()) * 8 / FP32_OPS_PER_S * 1e3
+            plain = time_ms(lambda: top5_l2_plain(q, tb, mb))
+            tmb = tb[mb].contiguous()
+            lib = time_ms(lambda: torch.topk(torch.cdist(q, tmb), 5, largest=False))
+            ops = q.shape[0] * tmb.shape[0] * 8 / FP32_OPS_PER_S * 1e3
             byts = (q.shape[0] * 12 + tb.shape[0] * 13 + q.shape[0] * 40) / HBM_BYTES_PER_S * 1e3
             blocks.append({"shape": f"{name} block 1/{W}", "Q": q.shape[0], "T": tb.shape[0], "ms": ms,
-                           "device_ms": dev_ms, "bound_ms": max(ops, byts),
+                           "device_ms": dev_ms, "plain_ms": plain, "library_ms": lib, "bound_ms": max(ops, byts),
                            "bound_by": "operations" if ops >= byts else "bytes"})
             log(f"K2 {name} block 1/{W} Q={q.shape[0]} T={tb.shape[0]}: {ms:.4f} ms a call, kernel alone "
-                f"{dev_ms:.4f} ms, bound {max(ops, byts):.5f} ms")
+                f"{dev_ms:.4f} ms, twin {plain:.4f} ms, cdist+topk {lib:.4f} ms, bound {max(ops, byts):.5f} ms")
     big = next(r for r in per_shape if r["shape"] == "mapping surf")
     records.append({
         "name": "knn_top5", "route": "cuda", "source": "lego_loam_torch/csrc/knn.cu",
@@ -1633,6 +1775,13 @@ def main() -> int:
         "bound_share": big["bound_share"],
         "shapes": per_shape, "blocks": blocks,
     })
+    prof = summary["profile"]
+    busy = {m: "not measured" if p["device_busy"] is None else f"{100 * p['device_busy']:.1f}%" for m, p in prof.items()}
+    log(f"graphs: slice {summary['graphs']}, lap continuation {summary['lap_continuation']['graphed']['graphs']}; "
+        f"slice {summary['scans_per_s']:.3f} scans/s graphed against {summary['eager_scans_per_s']:.3f} with "
+        f"graphs=False (first use included); steady state " + "; ".join(
+            f"{m} {p['scans_per_s']:.3f} scans/s, device busy {busy[m]}, {p['syncs_per_frame']:.2f} host "
+            f"synchronizations a frame" for m, p in prof.items()))
     log(json.dumps({"slice": summary}))
     log(card_line())
     log(json.dumps({"kernels": records}))

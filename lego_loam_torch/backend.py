@@ -25,11 +25,12 @@ import numpy as np
 import torch
 
 from .config import LegoLoamConfig
-from .distributed import all_rows, gather_rows, laid_out_as, write_row
+from .control import cond
+from .distributed import all_rows, assign, gather_rows, laid_out_as, write_row
 from .mapping import assemble_submap, map_prior, scan_to_map
 from .math import se3
 from .ops.voxel import voxel_downsample_masked
-from .types import MapState, ScanFeatures, _Base
+from .types import MapState, ScanFeatures, _Base, named_leaves
 
 # Per-keyframe cloud capacities (post-voxel-DS).
 KF_CORNER_CAP = 1024
@@ -117,13 +118,19 @@ def downsample_current_scan(features: ScanFeatures, outlier_xyz, outlier_mask, c
     """Corners voxel-downsampled at corner_leaf (nearest first, truncated to
     max_corner_scan); surf + outliers partitioned valid-first to
     max_surf_scan (the 0.4 m leaf applies to the assembled submap)."""
+    c, s = features.corner_less_sharp, features.surf_less_flat
+    return downsample_clouds(c.xyz, c.mask, s.xyz, s.mask, outlier_xyz, outlier_mask, cfg)
+
+
+def downsample_clouds(corner_xyz, corner_mask, surf_xyz, surf_mask, outlier_xyz, outlier_mask, cfg):
+    """`downsample_current_scan` of the less-sharp corner and less-flat surf
+    clouds given as (xyz, mask) pairs."""
     m = cfg.mapping
     c_xyz, c_m = voxel_downsample_masked(
-        features.corner_less_sharp.xyz, features.corner_less_sharp.mask,
-        m.corner_leaf, cfg.pipeline.local_voxel_radius, radial_pack=True,
+        corner_xyz, corner_mask, m.corner_leaf, cfg.pipeline.local_voxel_radius, radial_pack=True,
     )
-    s_all = torch.cat([features.surf_less_flat.xyz, outlier_xyz])
-    s_mask = torch.cat([features.surf_less_flat.mask, outlier_mask])
+    s_all = torch.cat([surf_xyz, outlier_xyz])
+    s_mask = torch.cat([surf_mask, outlier_mask])
     order = torch.argsort((~s_mask).to(torch.uint8), stable=True)[: m.max_surf_scan]
     return (
         c_xyz[: m.max_corner_scan],
@@ -151,15 +158,23 @@ def _select_keyframes(state: BackendState, center, cfg: LegoLoamConfig):
     return idx, torch.isfinite(neg)
 
 
-def backend_step_ds(state: BackendState, c_xyz, c_m, s_xyz, s_m, R_odom, t_odom, time, cfg):
+def backend_step_ds(state: BackendState, c_xyz, c_m, s_xyz, s_m, R_odom, t_odom, time, cfg, sync_free=False):
     """One mapping iteration on a pre-downsampled scan. Returns (new_state,
-    (R_map, t_map), MapDiag); the store tensors are updated in place."""
+    (R_map, t_map), MapDiag); the store and the submap buffers are updated
+    in place.
+
+    The submap is rebuilt after the vehicle moved `submap_rebuild_dist`, after
+    `submap_rebuild_every` keyframes, or while the store holds fewer than 5.
+    sync_free: that test is decided on the device (the reference's
+    `lax.cond`): the submap is assembled every frame and selected."""
     m = cfg.mapping
     R_prior, t_prior = map_prior(state.R_map, state.t_map, state.R_odom, state.t_odom, R_odom, t_odom)
 
     moved_far = torch.linalg.norm(t_prior - state.submap_center) > m.submap_rebuild_dist
     stale = (state.n_kf - state.submap_n_kf) >= m.submap_rebuild_every
-    if bool(moved_far | stale | (state.n_kf < 5)):
+    rebuild = moved_far | stale | (state.n_kf < 5)
+
+    def assemble():
         idx, valid = _select_keyframes(state, t_prior, cfg)
         submap = assemble_submap(
             gather_rows(state.kf_corner, idx).reshape(-1, KF_CORNER_CAP, 3),
@@ -172,10 +187,16 @@ def backend_step_ds(state: BackendState, c_xyz, c_m, s_xyz, s_m, R_odom, t_odom,
             t_prior,
             cfg,
         )
-        state = state.replace(submap=laid_out_as(state.submap, submap), submap_center=t_prior,
-                              submap_n_kf=state.n_kf)
+        return laid_out_as(state.submap, submap), t_prior, state.n_kf
 
-    R_new, t_new, diag = scan_to_map(c_xyz, c_m, s_xyz, s_m, R_prior, t_prior, state.submap, cfg)
+    new = cond(rebuild if sync_free else bool(rebuild), assemble,
+               lambda: (state.submap, state.submap_center, state.submap_n_kf))
+    for dst, src in zip(named_leaves(state.submap), named_leaves(new[0])):
+        assign(dst[1], src[1])
+    assign(state.submap_center, new[1])
+    assign(state.submap_n_kf, new[2])
+
+    R_new, t_new, diag = scan_to_map(c_xyz, c_m, s_xyz, s_m, R_prior, t_prior, state.submap, cfg, sync_free)
     R_new = se3.orthonormalize(R_new)
 
     # Keyframe gate; ring slot n_kf % K.

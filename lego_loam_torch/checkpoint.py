@@ -28,7 +28,7 @@ import json
 import numpy as np
 import torch
 
-from .distributed import all_rows, is_writer, laid_out_as
+from .distributed import all_rows, assign_state, is_writer, laid_out_as
 from .pipeline import LegoLoamPipeline, LoopFactor
 from .types import map_leaves, named_leaves
 
@@ -59,7 +59,9 @@ def load(pipe: LegoLoamPipeline, path: str) -> LegoLoamPipeline:
     """Restore state saved by `save` (by either package, on any number of
     ranks) into a freshly constructed pipeline of the same config, on the
     pipeline's device, each leaf laid out as the pipeline's own (this
-    rank's rows of a leaf in row blocks). Raises ValueError where a leaf's
+    rank's rows of a leaf in row blocks), written in place into the
+    pipeline's state tensors (a captured frame step reads them there).
+    Raises ValueError where a leaf's
     shape or dtype differs from the pipeline's. The port keeps its frame
     numbers on the host, so there is no device frame counter to re-sync
     (the reference's `_idx_dev`)."""
@@ -80,8 +82,8 @@ def load(pipe: LegoLoamPipeline, path: str) -> LegoLoamPipeline:
 
             return laid_out_as(template, map_leaves(template, read))
 
-        pipe.fstate = unflatten("f", pipe.fstate)
-        pipe.bstate = unflatten("b", pipe.bstate)
+        assign_state(pipe.fstate, unflatten("f", pipe.fstate))
+        assign_state(pipe.bstate, unflatten("b", pipe.bstate))
     pipe.frame_idx = int(meta["frame_idx"])
     pipe.loop_factors = [
         LoopFactor(

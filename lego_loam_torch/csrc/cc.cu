@@ -287,22 +287,11 @@ __global__ void __launch_bounds__(kThreads, 2) cc_label_prop_kernel(
 
 }  // namespace
 
-// right/down/cand: (B, H, W) bool; out: (B, H, W) int32. One cluster of
-// H / rows CTAs (at most 8) per scan on `stream`, `rows` rows and `smem`
-// bytes of dynamic shared memory a CTA: the layout is
-// lego_loam_torch/ops/segmentation.py::k1_layout's, carved as at the top of
-// the kernel. Returns the launch's cudaError_t (0 = launched), and
-// cudaErrorInvalidConfiguration where the card cannot hold one such cluster.
-extern "C" int cc_label_prop_launch(const void* right, const void* down,
-                                    const void* cand, void* out, int B, int H,
-                                    int W, int rows, int smem, void* stream) {
-  const int cs = H / rows;
-  if (cs < 1 || cs > kMaxCluster || cs * rows != H) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      cc_label_prop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+namespace {
+
+cudaLaunchConfig_t launch_config(cudaLaunchAttribute* attr, int B, int cs,
+                                 int smem, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cs;
   attr[0].val.clusterDim.y = 1;
@@ -310,14 +299,53 @@ extern "C" int cc_label_prop_launch(const void* right, const void* down,
   cfg.gridDim = dim3(B * cs);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  return cfg;
+}
+
+}  // namespace
+
+// Once per layout, before its first launch (not a stream operation, so
+// never inside a captured CUDA graph): allows at least `smem` bytes of
+// dynamic shared memory a CTA (the largest layout set up so far) and checks
+// that the card holds one cluster of `cs` CTAs of `smem` bytes. Returns a
+// cudaError_t, cudaErrorInvalidConfiguration where it does not.
+extern "C" int cc_label_prop_setup(int cs, int smem) {
+  static int allowed = 0;
+  if (cs < 1 || cs > kMaxCluster) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  if (smem > allowed) {
+    err = cudaFuncSetAttribute(
+        cc_label_prop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed = smem;
+  }
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = launch_config(attr, 1, cs, smem, nullptr);
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(&clusters, cc_label_prop_kernel, &cfg);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (clusters < 1) return cudaErrorInvalidConfiguration;
-  err = cudaLaunchKernelEx(&cfg, cc_label_prop_kernel,
+  return clusters < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
+// right/down/cand: (B, H, W) bool; out: (B, H, W) int32. One cluster of
+// H / rows CTAs (at most 8) per scan on `stream`, `rows` rows and `smem`
+// bytes of dynamic shared memory a CTA: the layout is
+// lego_loam_torch/ops/segmentation.py::k1_layout's, carved as at the top of
+// the kernel, set up once by cc_label_prop_setup. Only the launch and its
+// error check, so it may be captured into a CUDA graph. Returns the
+// launch's cudaError_t (0 = launched).
+extern "C" int cc_label_prop_launch(const void* right, const void* down,
+                                    const void* cand, void* out, int B, int H,
+                                    int W, int rows, int smem, void* stream) {
+  const int cs = H / rows;
+  if (cs < 1 || cs > kMaxCluster || cs * rows != H) return cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg =
+      launch_config(attr, B, cs, smem, static_cast<cudaStream_t>(stream));
+  cudaError_t err = cudaLaunchKernelEx(&cfg, cc_label_prop_kernel,
                            static_cast<const uint8_t*>(right),
                            static_cast<const uint8_t*>(down),
                            static_cast<const uint8_t*>(cand),

@@ -7,12 +7,16 @@ seconds. `build()` starts one `nvcc` per source, all at once.
 
 `LAUNCHES` counts, per kernel, the launches its wrapper made; `SITES` splits
 them by caller. A wrapper adds one where it launches its kernel and nowhere
-else, so a run can show that its path went through the kernels.
+else, so a run can show that its path went through the kernels. While a
+CUDA graph is captured (`capturing`), the wrapper's count goes to the
+graph's own record instead, and every replay of the graph adds that record
+(`add`): a launch is counted each time the card runs it.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import os
 import shutil
@@ -27,11 +31,15 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 LAUNCHES: collections.Counter = collections.Counter()
 SITES: collections.Counter = collections.Counter()
+_CAPTURES: list = []  # (launches, sites) of the captures in progress, innermost last
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of each launcher (all return a cudaError_t as int).
 _SIGNATURES = {
-    "cc": {"cc_label_prop_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "cc": {
+        "cc_label_prop_setup": [_I, _I],
+        "cc_label_prop_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
     "knn": {
         "knn_top5_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     },
@@ -45,9 +53,28 @@ def reset_counts():
 
 
 def count(kernel: str, site: str = ""):
-    LAUNCHES[kernel] += 1
+    launches, sites = _CAPTURES[-1] if _CAPTURES else (LAUNCHES, SITES)
+    launches[kernel] += 1
     if site:
-        SITES[f"{kernel}@{site}"] += 1
+        sites[f"{kernel}@{site}"] += 1
+
+
+@contextlib.contextmanager
+def capturing():
+    """While a CUDA graph is captured: the launches recorded into it, as a
+    (launches, sites) pair of Counters, which `add` counts per replay."""
+    record = (collections.Counter(), collections.Counter())
+    _CAPTURES.append(record)
+    try:
+        yield record
+    finally:
+        _CAPTURES.pop()
+
+
+def add(record):
+    """Count the launches of one replay of a captured graph."""
+    LAUNCHES.update(record[0])
+    SITES.update(record[1])
 
 
 def _nvcc() -> str:

@@ -288,6 +288,25 @@ def set_rows(leaf, whole):
         leaf.copy_(whole)
 
 
+def assign(dst, src):
+    """dst takes src's values in place (a block its block's rows): the
+    state's buffers keep their addresses, which a captured frame step
+    reads and writes."""
+    if dst is src:
+        return
+    if isinstance(dst, RowBlock):
+        dst.local.copy_(src.local)
+    else:
+        dst.copy_(src)
+
+
+def assign_state(dst, src):
+    """Every leaf of the state `dst` takes the matching leaf of `src` in
+    place (`assign`)."""
+    for (_, d), (_, s) in zip(named_leaves(dst), named_leaves(src)):
+        assign(d, s)
+
+
 def row_sum(leaf):
     """The sum of every element of the leaf; over row blocks, each rank's
     sum all-reduced (exact for the integer sums of masks)."""

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from .config import LegoLoamConfig
+from .control import cond
 from .imu import ImuTrack, undistort_to
 from .math import se3
 from .odometry import to_scan_end, two_step_odometry
@@ -115,7 +116,8 @@ def imu_attitude(track: ImuTrack):
     return track.R.index_select(0, last)[0], track.mask.any()
 
 
-def frontend_solve(feats: ScanFeatures, state: OdometryState, cfg: LegoLoamConfig, odom_prior=None, imu_att=None):
+def frontend_solve(feats: ScanFeatures, state: OdometryState, cfg: LegoLoamConfig, odom_prior=None, imu_att=None,
+                   sync_free: bool = False):
     """Two-step scan-to-scan GN, world-pose integration and the scan-end
     target swap. Returns (new_state, outputs).
 
@@ -123,34 +125,42 @@ def frontend_solve(feats: ScanFeatures, state: OdometryState, cfg: LegoLoamConfi
     the GN with it, "override" mode replaces the solved motion with it (the
     first frame's identity too). imu_att: optional ((3, 3) R, () valid), the
     IMU attitude at scan end: once initialized, M is corrected so the world
-    attitude moves `imu_attitude_weight` of the way toward it (where valid)."""
+    attitude moves `imu_attitude_weight` of the way toward it (where valid).
+
+    sync_free: the branches on `state.initialized` are decided on the device
+    (both sides computed, one selected, the reference's `lax.cond`): the
+    first frame solves against the empty targets and takes the identity."""
     mode = cfg.odometry.odom_prior_mode
-    initialized = bool(state.initialized)
-    if initialized:
+    initialized = state.initialized if sync_free else bool(state.initialized)
+    dev = state.t_world.device
+
+    def solve():
         M_R0, M_t0 = odom_prior if odom_prior is not None and mode == "init" else (state.R_prev_cur, state.t_prev_cur)
-        M_R, M_t = two_step_odometry(feats, state.last_corner, state.last_surf, M_R0, M_t0, cfg)
-    else:
-        dev = state.t_world.device
-        M_R, M_t = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+        return two_step_odometry(feats, state.last_corner, state.last_surf, M_R0, M_t0, cfg, sync_free)
+
+    M_R, M_t = cond(initialized, solve, lambda: (torch.eye(3, device=dev), torch.zeros(3, device=dev)))
     if odom_prior is not None and mode == "override":
         M_R, M_t = odom_prior
 
     w_att = cfg.odometry.imu_attitude_weight
-    if imu_att is not None and w_att > 0 and initialized:
+    if imu_att is not None and w_att > 0:
         # the reference weighs the first frame's anchor by 0: exp(0) = I
-        R_att, att_valid = imu_att
-        e = se3.log_so3((state.R_world @ M_R).T @ R_att)
-        M_R = M_R @ se3.exp_so3(w_att * att_valid.to(e.dtype) * e)
+        def anchored():
+            R_att, att_valid = imu_att
+            e = se3.log_so3((state.R_world @ M_R).T @ R_att)
+            return M_R @ se3.exp_so3(w_att * att_valid.to(e.dtype) * e)
 
-    if initialized:
+        M_R = cond(initialized, anchored, lambda: M_R)
+
+    def averaged():
         # Deskew with the two-frame SE(3) average of the motion: the raw
         # solve's error feeds the next targets and sustains a period-2
         # oscillation that the 2-tap average cancels.
         dRp, dtp = se3.relative(state.R_prev_cur, state.t_prev_cur, M_R, M_t)
         dRh, dth = se3.interp(dRp, dtp, 0.5)
-        M_R_avg, M_t_avg = se3.compose(state.R_prev_cur, state.t_prev_cur, dRh, dth)
-    else:
-        M_R_avg, M_t_avg = M_R, M_t
+        return se3.compose(state.R_prev_cur, state.t_prev_cur, dRh, dth)
+
+    M_R_avg, M_t_avg = cond(initialized, averaged, lambda: (M_R, M_t))
 
     R_world, t_world = se3.compose(state.R_world, state.t_world, M_R, M_t)
     new_corner = to_scan_end(feats.corner_less_sharp, M_R_avg, M_t_avg)

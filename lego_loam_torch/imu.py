@@ -42,6 +42,12 @@ class ImuTrack(_Base):
         return ImuTrack(*(getattr(self, f.name)[c] for f in dataclasses.fields(self)))
 
 
+def _const(values, like):
+    """A (3,) constant on `like`'s device, built by fills (no upload, so it
+    may be made inside a captured step)."""
+    return torch.stack([torch.full((), float(v), dtype=like.dtype, device=like.device) for v in values])
+
+
 def integrate_imu(t, rpy, acc, v0=None, mask=None) -> ImuTrack:
     """Integrate raw samples: t (..., S) times, rpy (..., S, 3) roll/pitch/
     yaw orientation, acc (..., S, 3) body-frame acceleration with gravity.
@@ -58,8 +64,7 @@ def integrate_imu(t, rpy, acc, v0=None, mask=None) -> ImuTrack:
     if mask is None:
         mask = torch.ones(t.shape, dtype=torch.bool, device=t.device)
     R = se3.euler_zyx_to_matrix(rpy[..., 0], rpy[..., 1], rpy[..., 2])
-    g = torch.tensor(GRAVITY, dtype=acc.dtype, device=acc.device)
-    acc_w = torch.einsum("...sij,...sj->...si", R, acc) + g
+    acc_w = torch.einsum("...sij,...sj->...si", R, acc) + _const(GRAVITY, acc)
     # dt_0 = 0; a padded slot's raw dt is negative (its t is 0): zeroed
     dt = torch.diff(t, dim=-1, prepend=t[..., :1])
     dt = torch.where(mask, dt, torch.zeros_like(dt))[..., None]
@@ -119,7 +124,7 @@ def odom_prior_motion(R_slam, t_slam, R_odom_prev, t_odom_prev, R_odom_cur, t_od
     the odometry frame and the sensor: the sensor positions t + R la of
     both poses, expressed in the previous pose's frame. R_slam and t_slam
     (the accumulated lidar odometry) are unused, as in the reference."""
-    la = torch.as_tensor(lever_arm, dtype=t_odom_cur.dtype, device=t_odom_cur.device)
+    la = _const(lever_arm, t_odom_cur)
     p_prev = t_odom_prev + R_odom_prev @ la
     p_cur = t_odom_cur + R_odom_cur @ la
     return R_odom_prev.T @ R_odom_cur, R_odom_prev.T @ (p_cur - p_prev)

@@ -146,8 +146,9 @@ def transform(R, t, p):
 def interp(R, t, s):
     """Fractional pose exp(s * log(T)); s broadcasts over leading dims."""
     xi = log_se3(R, t)
-    s = torch.as_tensor(s, dtype=xi.dtype, device=xi.device)
-    return exp_se3(xi * s[..., None])
+    if not isinstance(s, torch.Tensor):  # a number scales on the device, with no upload
+        return exp_se3(xi * s)
+    return exp_se3(xi * s.to(xi.dtype)[..., None])
 
 
 def euler_zyx_to_matrix(roll, pitch, yaw):

@@ -10,8 +10,12 @@ exp(s log M). The search is kernel K2 (exact, groups=1), refreshed only when
 the pose moved past the refresh thresholds; the line/plane fits are cached
 between refreshes and the residuals re-evaluated every iteration.
 
-The loops are Python loops with the reference's early exits; each
-iteration reads one small tensor back to decide them.
+Each stage runs at most `max_iterations` GN iterations. With `sync_free`
+the loop makes no host read: it runs every iteration, a sticky device flag
+`done` freezes the pose once converged, and the search and fit run every
+iteration and are kept where the pose moved (compute and select), so the
+result is the early-exit loop's bit for bit. Otherwise each iteration reads
+the two flags back and exits early, as the reference's `lax.while_loop`.
 """
 
 from __future__ import annotations
@@ -21,8 +25,9 @@ import math
 import torch
 
 from .config import LegoLoamConfig
+from .control import cond
 from .math import se3
-from .math.linalg3 import eigvals3x3_components, eigvec_extreme_components
+from .math.linalg3 import eigh3x3, eigvals3x3_components, eigvec_extreme_components
 from .ops.knn import top5_l2
 from .types import FeatureCloud, ScanFeatures
 
@@ -163,7 +168,9 @@ def _gn_step(q_xyz, n, d, w, dof_idx, cfg: LegoLoamConfig):
     """One masked-DOF Gauss-Newton step with eigenvalue degeneracy
     projection and a per-iteration trust region. Returns the 6-twist and
     its (deg, cm) norms. The Jacobian is unscaled by the sweep time, as in
-    the reference."""
+    the reference. The 3x3 eigenproblem is the closed form of
+    `math/linalg3` in float64 (`torch.linalg.eigh` reads its error code back
+    on the card), and the DOFs are placed by a stack, not a host index."""
     o = cfg.odometry
     gx, gy, gz = n
     qx, qy, qz = q_xyz[:, 0], q_xyz[:, 1], q_xyz[:, 2]
@@ -171,13 +178,13 @@ def _gn_step(q_xyz, n, d, w, dof_idx, cfg: LegoLoamConfig):
     J = torch.stack([cols6[i] * w for i in dof_idx], dim=1)  # (N, 3)
     H = J.T @ J
     g = J.T @ (d * w)
-    evals, evecs = torch.linalg.eigh(H)
+    evals, evecs = (x.to(H.dtype) for x in eigh3x3(H.to(torch.float64)))
     keep = (evals >= o.eigen_threshold).to(H.dtype)
     ginv = torch.where(evals > 1e-12, 1.0 / torch.clamp(evals, min=1e-12), 0.0)
     delta3 = -(evecs @ ((evecs.T @ g) * ginv * keep)) * o.step_scale
     delta3 = torch.where((w > 0).sum() >= o.min_correspondences, delta3, 0.0)
-    delta = torch.zeros(6, dtype=H.dtype, device=H.device)
-    delta[list(dof_idx)] = delta3
+    zero = torch.zeros((), dtype=H.dtype, device=H.device)
+    delta = torch.stack([delta3[dof_idx.index(i)] if i in dof_idx else zero for i in range(6)])
 
     rot_cap = o.step_clamp_rot_deg * math.pi / 180.0
     rot_n = torch.linalg.norm(delta[:3])
@@ -190,34 +197,43 @@ def _gn_step(q_xyz, n, d, w, dof_idx, cfg: LegoLoamConfig):
     return delta, torch.linalg.norm(delta[:3]) * 180.0 / math.pi, torch.linalg.norm(delta[3:]) * 100.0
 
 
-def _solve_stage(M_R, M_t, query, target, search_fn, fit_fn, eval_fn, dof_mask, cfg):
+def _solve_stage(M_R, M_t, query, target, search_fn, fit_fn, eval_fn, dof_mask, cfg, sync_free=False):
     """GN iterations with motion-triggered correspondence refresh, then the
-    stage-level trust region around the warm start."""
+    stage-level trust region around the warm start. sync_free: no host
+    read (see the module docstring)."""
     o = cfg.odometry
     dof_idx = tuple(i for i, on in enumerate(dof_mask) if on)
     thr = 1.0 + 2.0 * math.cos(o.refresh_rot_deg * math.pi / 180.0)
     R, t = M_R, M_t
     R_ref, t_ref = M_R, M_t
     fit = None
-    need = True
+    need = True  # the first iteration always searches
+    done = torch.zeros((), dtype=torch.bool, device=M_t.device) if sync_free else False
     for _ in range(o.max_iterations):
         q_xyz = warp_points(R, t, query.xyz, query.rel_time)
-        if need:
+
+        def refresh():
             idx, ok = search_fn(q_xyz, query, target, cfg)
-            fit = fit_fn(target.xyz[idx], ok)
-            R_ref, t_ref = R, t
+            return fit_fn(target.xyz[idx], ok), R, t
+
+        fit, R_ref, t_ref = cond(need, refresh, lambda: (fit, R_ref, t_ref))
         n, d, w = eval_fn(q_xyz, fit, cfg)
         delta, rot_deg, trans_cm = _gn_step(q_xyz, n, d, w, dof_idx, cfg)
         dR, dt = se3.exp_se3(delta)
-        R, t = se3.compose(dR, dt, R, t)
-        done = (rot_deg < o.rot_converge_deg) & (trans_cm < o.trans_converge_cm)
+        R_new, t_new = se3.compose(dR, dt, R, t)
+        converged = (rot_deg < o.rot_converge_deg) & (trans_cm < o.trans_converge_cm)
         # trace(R_ref^T R) = 1 + 2 cos(angle between them)
-        moved = (torch.trace(R_ref.T @ R) < thr) | (
-            torch.linalg.norm(t - t_ref) > o.refresh_trans_m
+        moved = (torch.trace(R_ref.T @ R_new) < thr) | (
+            torch.linalg.norm(t_new - t_ref) > o.refresh_trans_m
         )
-        done, need = torch.stack([done, moved]).tolist()
-        if done:
-            break
+        if sync_free:
+            R, t = torch.where(done, R, R_new), torch.where(done, t, t_new)
+            done, need = done | converged, moved
+        else:
+            R, t = R_new, t_new
+            converged, need = torch.stack([converged, moved]).tolist()
+            if converged:
+                break
 
     dR, dt = se3.relative(M_R, M_t, R, t)
     xi = se3.log_se3(dR, dt)
@@ -237,7 +253,7 @@ FULL_DOFS = (True,) * 6
 
 def two_step_odometry(
     features: ScanFeatures, last_corner: FeatureCloud, last_surf: FeatureCloud,
-    M_R_init, M_t_init, cfg: LegoLoamConfig,
+    M_R_init, M_t_init, cfg: LegoLoamConfig, sync_free: bool = False,
 ):
     """Full two-step solve. Returns the refined (R, t) motion estimate."""
     o = cfg.odometry
@@ -245,11 +261,11 @@ def two_step_odometry(
     corner_dofs = FULL_DOFS if o.full_dof_odometry else CORNER_DOFS
     R, t = _solve_stage(
         M_R_init, M_t_init, features.surf_flat, last_surf,
-        surf_search5, surf_fit5, surf_eval5, surf_dofs, cfg,
+        surf_search5, surf_fit5, surf_eval5, surf_dofs, cfg, sync_free,
     )
     R, t = _solve_stage(
         R, t, features.corner_sharp, last_corner,
-        corner_search5, corner_fit5, corner_eval5, corner_dofs, cfg,
+        corner_search5, corner_fit5, corner_eval5, corner_dofs, cfg, sync_free,
     )
     if o.accel_cap > 0:
         # Keep |t| within accel_cap of the warm start's speed, except on a

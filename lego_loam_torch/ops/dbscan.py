@@ -50,7 +50,7 @@ def dbscan_edge_filter(cloud: FeatureCloud, cfg: LegoLoamConfig) -> torch.Tensor
 
     big = N
     label = torch.where(mask, torch.arange(N, dtype=torch.int64, device=dev), big)
-    bigv = torch.tensor([big], dtype=torch.int64, device=dev)
+    bigv = torch.full((1,), big, dtype=torch.int64, device=dev)
     iters = max(4, int(math.ceil(math.log2(max(N, 2)))))
     for _ in range(iters):
         nei = torch.where(adj, label[None, :], big).amin(dim=1)

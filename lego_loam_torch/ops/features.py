@@ -138,11 +138,22 @@ def _gather_rows(seg: SegmentedScan, pick, cap: int) -> FeatureCloud:
     )
 
 
+_SHADOW: dict = {}  # (rows, cols, device) -> the grid, uploaded once
+
+
 def shadow_points(cfg: LegoLoamConfig, device="cpu") -> torch.Tensor:
     """Virtual floor grid under the robot in the lidar frame: shadow_rows x
     shadow_cols points ~8.5 cm below the sensor, FoV-shaped, offset by the
-    lidar-to-body lever (0.008, 0, -0.035)."""
+    lidar-to-body lever (0.008, 0, -0.035). Uploaded once per device and
+    shared (read only): a frame step makes no upload."""
     f = cfg.features
+    key = (f.shadow_rows, f.shadow_cols, str(torch.device(device)))
+    if key not in _SHADOW:
+        _SHADOW[key] = _shadow_grid(f).to(device)
+    return _SHADOW[key]
+
+
+def _shadow_grid(f) -> torch.Tensor:
     row_angle = (np.arctan2(0.120, 0.05) * 2) / (f.shadow_rows - 1)
     col_angle = (np.arctan2(0.077, 0.05) * 2) / (f.shadow_cols - 1)
     r = np.arange(f.shadow_rows)
@@ -153,7 +164,7 @@ def shadow_points(cfg: LegoLoamConfig, device="cpu") -> torch.Tensor:
     y = np.broadcast_to(col_y[None, :], (f.shadow_rows, f.shadow_cols)) + 0.0
     z = np.full_like(x, -(0.035 + 0.05) - 0.035)
     pts = np.stack([x, y, z], axis=-1).reshape(-1, 3).astype(np.float32)
-    return torch.from_numpy(pts).to(device)
+    return torch.from_numpy(pts)
 
 
 def _sector_rank(score, pick, count, n_sectors, descending=True):

@@ -22,7 +22,7 @@ from ..types import ScanGrid
 
 
 def _int8(v, like):
-    return torch.tensor(v, dtype=torch.int8, device=like.device)
+    return torch.full((), v, dtype=torch.int8, device=like.device)  # a fill: no upload
 
 
 def ground_removal_upstream(grid: ScanGrid, cfg: LegoLoamConfig) -> torch.Tensor:
@@ -192,9 +192,10 @@ def _near_pass(grid: ScanGrid, code: torch.Tensor, cfg: LegoLoamConfig, scores) 
 
     dist = torch.abs(xyz @ n.T + d[None, :])  # (HW, n_iters)
     inl = (dist <= g.ransac_distance_threshold) & cand[:, None]
-    best = torch.argmax(inl.sum(dim=0))
+    best = torch.argmax(inl.sum(dim=0)).reshape(1)
     out = torch.where(near, _int8(0, code), flat_code)
-    out = torch.where(near & inl[:, best], _int8(1, code), out)
+    # index_select: indexing with a 0-d tensor would read it back to the host
+    out = torch.where(near & inl.index_select(1, best)[:, 0], _int8(1, code), out)
     return out.reshape(H, W)
 
 

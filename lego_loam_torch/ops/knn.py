@@ -93,7 +93,12 @@ def _scratch(dev, stream, n_counters, n_part):
     nothing but its outputs: the zeroed ticket counters, one per query block
     (the block that merges a query block's splits resets its counter), and
     room for the (S, Q, 5) split lists, d2 then index. Launches ordered on
-    one stream share them."""
+    one stream share them. A launch captured into a CUDA graph takes its own
+    (zeroed in the graph, kept by the graph's memory pool), so no eager
+    launch and no other graph shares them, and none is freed under it."""
+    if torch.cuda.is_current_stream_capturing():
+        return (torch.zeros(max(n_counters, 1), dtype=torch.int32, device=dev),
+                torch.empty(max(2 * n_part, 1), dtype=torch.int32, device=dev))
     key = (dev, stream)
     counters, part = _SCRATCH.get(key, (None, None))
     if counters is None or counters.numel() < n_counters:

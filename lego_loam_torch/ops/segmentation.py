@@ -95,6 +95,7 @@ def label_prop_plain(left, right, up, down, candidate):
 # per 32 columns in shared memory (227 KB at most on the H100).
 _K1_CLUSTER = 8
 _K1_SMEM_LIMIT = 232448
+_K1_READY: set = set()  # (cluster size, bytes) layouts set up on the card
 
 
 def k1_layout(H: int, W: int):
@@ -134,6 +135,9 @@ def label_prop(left, right, up, down, candidate):
     B = shape[0] if len(shape) == 3 else 1
     out = torch.empty(shape, dtype=torch.int32, device=dev)
     lib = cuda.library("cc")
+    if (cs, smem) not in _K1_READY:  # once per layout, outside any graph capture
+        cuda.check(lib.cc_label_prop_setup(cs, smem), f"cc_label_prop setup (a cluster of {cs} CTAs of {smem} bytes)")
+        _K1_READY.add((cs, smem))
     err = lib.cc_label_prop_launch(
         right.data_ptr(), down.data_ptr(), candidate.data_ptr(), out.data_ptr(), B, H, W,
         rows, smem, cuda.stream_ptr(dev),

@@ -1,13 +1,25 @@
 """Host orchestrator: per-scan odometry and mapping over chunks of scans,
 with loop closure (port of `lego_loam_tpu/pipeline.py`).
 
-`process_chunk` runs C scans: first the per-scan work that depends on no
-earlier scan (range-image reconstruction, ground removal; the connected
-components of all C scans in one K1 launch, one cluster per scan), then,
-frame by frame, segmentation and features, the two-step scan-to-scan solve,
-the scan-to-map solve and the keyframe append, and the fused pose. The
-reference runs the same step inside one `lax.scan`; here it is a Python
-loop whose early exits read small tensors back.
+`process_chunk` runs C scans in three steps: a prepass over the chunk (the
+per-scan work that depends on no earlier scan: range-image reconstruction,
+ground removal, the connected components of all C scans in one K1 launch,
+one cluster per scan, and the IMU integration), then per frame a front step
+(segmentation and features, the two-step scan-to-scan solve, the deskew and
+the fused pose) and, on a mapped frame, a map step (downsampling, the
+scan-to-map solve and the keyframe append). The reference runs the frames
+inside one `lax.scan` (`_build_chunk_runner`) and the per-scan path as two
+jitted programs (`frontend_step_fused`, `backend_step`).
+
+With `sync_free` (the default on a GPU) the steps make no host read: every
+data-dependent branch and loop exit is decided on the device (see
+`control.py`), with the early-exit path's results bit for bit. With
+`graphs` (the default on a GPU) each step is captured as a CUDA graph at its
+second use and replayed (`graphs.py`): the prepass once per chunk, front and
+map once per frame, the inputs copied in and the outputs copied out into
+(C, ...) buffers, so no host read happens inside a chunk. The state lives
+in fixed buffers that every writer updates in place. A store in row blocks
+or a world of more than one rank runs the same steps without capture.
 
 Loop closure keeps the reference's asynchronous schedule (see
 `_try_loop_closure`): a candidate probe after each checked chunk, read two
@@ -52,10 +64,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .backend import BackendState, backend_step_ds, downsample_current_scan, init_backend_state
+from .backend import BackendState, backend_step_ds, downsample_clouds, init_backend_state
 from .config import LegoLoamConfig
 from .distributed import (
+    RowBlock,
     all_rows,
+    assign,
+    assign_state,
     gather_rows,
     is_writer,
     make_mesh,
@@ -66,7 +81,8 @@ from .distributed import (
 )
 from .frontend import deskew_outliers, frontend_solve, imu_attitude, init_odometry_state, segment_features
 from .fusion import fuse_pose
-from .imu import integrate_imu, odom_prior_motion
+from .graphs import StepGraphs
+from .imu import ImuTrack, integrate_imu, odom_prior_motion
 from .loopclosure import attempt_loop_closure, compute_loopinfo
 from .mapping import MapDiag
 from .math import se3
@@ -74,7 +90,7 @@ from .ops.ground import apply_ground, ransac_scores
 from .ops.projection import grid_from_range_image, host_pack_range_image, project_point_cloud
 from .ops.segmentation import converged_labels
 from .posegraph import Factors, anchor_stride, graph_cost, reduced_solve
-from .types import OdometryState, ScanGrid
+from .types import OdometryState, ScanGrid, named_leaves
 from .utils.profiling import synchronize
 
 
@@ -99,9 +115,16 @@ class LegoLoamPipeline:
     profile: `process_scan` waits for the device before and after each
     mapping step and records the wall time between in
     diagnostics["mapping_ms"] (written to mapt.txt), as the reference's
-    profile=True does; the default path adds no wait."""
+    profile=True does; the default path adds no wait.
 
-    def __init__(self, cfg: LegoLoamConfig, seed: int = 0, device="cuda", ground_scores=None, profile: bool = False):
+    sync_free: the frame steps decide every branch on the device and read
+    nothing back (default: on a CUDA device). graphs: they are captured as
+    CUDA graphs and replayed (default: with sync_free on a CUDA device;
+    `graphs=False` runs the same steps eagerly). `graph_stats` counts the
+    captures, recaptures and replays."""
+
+    def __init__(self, cfg: LegoLoamConfig, seed: int = 0, device="cuda", ground_scores=None, profile: bool = False,
+                 sync_free: bool | None = None, graphs: bool | None = None):
         if cfg.mapping.enable_loop_closure:
             anchor_stride(cfg)  # refuses a stride that leaves too many anchors, before any allocation
         # More than one rank: the reference's mesh (`len(jax.devices()) > 1`).
@@ -117,6 +140,13 @@ class LegoLoamPipeline:
         self.seed = seed
         self.device = torch.device(device)
         self.profile = profile
+        on_card = self.device.type == "cuda"
+        self.sync_free = on_card if sync_free is None else bool(sync_free)
+        self.graphs = self.sync_free and on_card if graphs is None else bool(graphs)
+        if self.graphs and not (self.sync_free and on_card):
+            raise ValueError("graphs=True needs sync_free and a CUDA device")
+        self._graphs = StepGraphs()
+        self.graph_stats = self._graphs.stats
         self._ground_scores = ground_scores or self._draw_scores
         self.fstate: OdometryState = init_odometry_state(cfg, self.device)
         self.bstate: BackendState = init_backend_state(cfg, self.device)
@@ -265,6 +295,78 @@ class LegoLoamPipeline:
             pts = pts.to(torch.float32) * cfg.pipeline.feed_quant
         return project_point_cloud(pts, xs["mask"][c], cfg)
 
+    # The three steps. Each takes a dict of input tensors and returns a dict
+    # of output tensors; the front and map steps read the state and write it
+    # in place, so that a captured graph finds it where it was captured.
+
+    def _prepass_step(self, x) -> dict:
+        """The chunk's grids (range image or projection) grounded with the
+        scores drawn for each scan, their connected components in one K1
+        launch, and the IMU tracks: (C, ...) outputs."""
+        cfg = self.cfg
+        grids = [apply_ground(self._grid(x, c), cfg, x["scores"][c]) for c in range(x["scores"].shape[0])]
+        out = {f"grid.{f.name}": torch.stack([getattr(g, f.name) for g in grids]) for f in dataclasses.fields(ScanGrid)}
+        out["raw"], _ = converged_labels(ScanGrid(**{k[5:]: v for k, v in out.items()}), cfg)
+        if self._use_imu:  # all C windows at once
+            track = integrate_imu(x["imu.t"], x["imu.rpy"], x["imu.acc"], mask=x["imu.mask"])
+            out.update({f"imu.{f.name}": getattr(track, f.name) for f in dataclasses.fields(ImuTrack)})
+        return out
+
+    def _front_step(self, x) -> dict:
+        """One frame's segmentation, features (undistorted with its IMU
+        track), scan-to-scan solve (seeded by its wheel-odometry prior), the
+        deskew of its map clouds and its fused pose; the odometry state is
+        written in place."""
+        cfg = self.cfg
+        grid = ScanGrid(**{f.name: x[f"grid.{f.name}"] for f in dataclasses.fields(ScanGrid)})
+        track = ImuTrack(**{f.name: x[f"imu.{f.name}"] for f in dataclasses.fields(ImuTrack)}) if self._use_imu else None
+        prior = None
+        if self._use_odom:
+            prior = odom_prior_motion(self.fstate.R_world, self.fstate.t_world, x["odom_prev_R"], x["odom_prev_t"],
+                                      x["odom_R"], x["odom_t"], cfg.odometry.odom_lever_arm)
+        _grid, seg, feats = segment_features(grid, cfg, x["raw"], track)
+        imu_att = imu_attitude(track) if track is not None else None
+        new_state, out = frontend_solve(feats, self.fstate, cfg, prior, imu_att, sync_free=self.sync_free)
+        bs = self.bstate
+        # Fused pose from the latest *available* map pose (one frame
+        # stale, as the reference's asynchronous fusion node).
+        Rf, tf = fuse_pose(bs.R_map, bs.t_map, bs.R_odom, bs.t_odom, out["R_world"], out["t_world"])
+        assign_state(self.fstate, new_state)
+        return {
+            "R_odom": out["R_world"], "t_odom": out["t_world"], "R_fused": Rf, "t_fused": tf,
+            "corner": out["map_corner"].xyz, "corner_mask": out["map_corner"].mask,
+            "surf": out["map_surf"].xyz, "surf_mask": out["map_surf"].mask,
+            "outlier": deskew_outliers(seg, out["M_R_avg"], out["M_t_avg"], cfg), "outlier_mask": seg.outlier_mask,
+        }
+
+    def _map_step(self, x) -> dict:
+        """One mapped frame: its clouds downsampled, registered to the
+        submap and appended as a keyframe; the back-end state is written in
+        place."""
+        cfg = self.cfg
+        ds = downsample_clouds(x["corner"], x["corner_mask"], x["surf"], x["surf_mask"], x["outlier"],
+                               x["outlier_mask"], cfg)
+        new_state, (R_map, t_map), diag = backend_step_ds(
+            self.bstate, *ds, x["R_odom"], x["t_odom"], x["time"], cfg, sync_free=self.sync_free
+        )
+        assign_state(self.bstate, new_state)
+        return {"R_map": R_map, "t_map": t_map, **{f"diag.{k}": v for k, v in diag._asdict().items()}}
+
+    _MAP_INPUTS = ("corner", "corner_mask", "surf", "surf_mask", "outlier", "outlier_mask", "R_odom", "t_odom")
+
+    def _capturable(self) -> bool:
+        """Graphs on, the store not in row blocks and one rank: the steps
+        are captured; otherwise they run eagerly (capture with collectives
+        is not done)."""
+        if not self.graphs or any(isinstance(leaf, RowBlock) for _, leaf in named_leaves(self.bstate)):
+            return False
+        return not (dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1)
+
+    def _step(self, kind, key, fn, x) -> dict:
+        if not self._capturable():
+            return fn(x)
+        return self._graphs.run(kind, key, fn, x, (self.fstate, self.bstate))
+
     def _frames(self, xs, kf_ts, log_ts, odom_prev=None, timed=False):
         """Run the staged scans of `xs` as frames frame_idx, frame_idx+1, ...
         (frame_idx itself is left to the caller). kf_ts: (C,) device tensor
@@ -272,68 +374,64 @@ class LegoLoamPipeline:
         mapped frame (floats, or the same device tensor); odom_prev: the
         wheel-odometry pose (device R, t) before the chunk's first scan,
         with the prior on; timed: record each mapping step's wall time,
-        the device synchronized before and after it. Returns the last
-        frame's poses."""
+        the device synchronized before and after it. The outputs go into
+        (C, ...) buffers, the counterpart of the reference's scan outputs,
+        which the logs keep. Returns the last frame's poses."""
         cfg = self.cfg
         C = int(xs["rimg" if "rimg" in xs else "pts"].shape[0])
         f0 = self.frame_idx
         self._finalized = False
 
-        grids = [
-            apply_ground(self._grid(xs, c), cfg, self._ground_scores(f0 + c)) for c in range(C)
-        ]
-        stacked = ScanGrid(**{
-            f.name: torch.stack([getattr(g, f.name) for g in grids])
-            for f in dataclasses.fields(ScanGrid)
-        })
-        raw, _ = converged_labels(stacked, cfg)
-        tracks = None
-        if self._use_imu:  # all C windows at once
-            im = xs["imu"]
-            tracks = integrate_imu(im["t"], im["rpy"], im["acc"], mask=im["mask"])
+        feed = ("rimg", "azr", "elr", "rowe") if "rimg" in xs else ("pts", "mask")
+        x = {k: xs[k] for k in feed}
+        # the chunk's RANSAC draws, made before its steps
+        x["scores"] = torch.stack([self._ground_scores(f0 + c) for c in range(C)]).to(self.device)
+        if self._use_imu:
+            x.update({f"imu.{k}": v for k, v in xs["imu"].items()})
+        pre = self._step("prepass", (feed[0], str(x[feed[0]].dtype), C, self._use_imu), self._prepass_step, x)
 
         div = cfg.mapping.mapping_frequency_divider
+        mapped = [c for c in range(C) if (f0 + c) % div == 0]
+        front_buf, map_buf = {}, {}
+
+        def keep(buf, n, i, out):
+            for k, v in out.items():
+                if k not in buf:
+                    buf[k] = torch.empty((n, *v.shape), dtype=v.dtype, device=v.device)
+                buf[k][i].copy_(v)
+
         for c in range(C):
-            track = tracks.frame(c) if tracks is not None else None
-            prior = None
+            x = {k: v[c] for k, v in pre.items()}
             if self._use_odom:
                 cur = (xs["odom_R"][c], xs["odom_t"][c])
-                prior = odom_prior_motion(self.fstate.R_world, self.fstate.t_world, *odom_prev, *cur,
-                                          cfg.odometry.odom_lever_arm)
+                x["odom_prev_R"], x["odom_prev_t"] = odom_prev
+                x["odom_R"], x["odom_t"] = cur
                 odom_prev = cur
-            _grid, seg, feats = segment_features(grids[c], cfg, raw[c], track)
-            imu_att = imu_attitude(track) if track is not None else None
-            self.fstate, out = frontend_solve(feats, self.fstate, cfg, prior, imu_att)
-            map_feats = feats.replace(
-                corner_less_sharp=out["map_corner"], surf_less_flat=out["map_surf"]
-            )
-            o_xyz = deskew_outliers(seg, out["M_R_avg"], out["M_t_avg"], cfg)
-
-            bs = self.bstate
-            # Fused pose from the latest *available* map pose (one frame
-            # stale, as the reference's asynchronous fusion node).
-            Rf, tf = fuse_pose(bs.R_map, bs.t_map, bs.R_odom, bs.t_odom, out["R_world"], out["t_world"])
-            self._log["odom_t"].append(out["t_world"])
-            self._log["fused_t"].append(tf)
-            if (f0 + c) % div == 0:
+            out = self._step("front", (self._use_imu, self._use_odom), self._front_step, x)
+            keep(front_buf, C, c, {k: out[k] for k in ("R_odom", "t_odom", "R_fused", "t_fused")})
+            if c in mapped:
+                y = {k: out[k] for k in self._MAP_INPUTS}
+                y["time"] = kf_ts[c]
                 if timed:
-                    synchronize(out["t_world"])
+                    synchronize(out["t_odom"])
                     t0 = time.perf_counter()
-                ds = downsample_current_scan(map_feats, o_xyz, seg.outlier_mask, cfg)
-                self.bstate, (R_map, t_map), diag = backend_step_ds(
-                    bs, *ds, out["R_world"], out["t_world"], kf_ts[c], cfg
-                )
+                res = self._step("map", (), self._map_step, y)
                 if timed:
-                    synchronize(t_map)
+                    synchronize(res["t_map"])
                     self.diagnostics["mapping_ms"].append((time.perf_counter() - t0) * 1e3)
-                self._log["map_R"].append(R_map)
-                self._log["map_t"].append(t_map)
-                self._log["map_time"].append(log_ts[c] if isinstance(log_ts, torch.Tensor) else float(log_ts[c]))
-                self._diags.append(diag)
+                keep(map_buf, len(mapped), mapped.index(c), res)
+
+        self._log["odom_t"].extend(front_buf["t_odom"].unbind(0))
+        self._log["fused_t"].extend(front_buf["t_fused"].unbind(0))
+        for i, c in enumerate(mapped):
+            self._log["map_R"].append(map_buf["R_map"][i])
+            self._log["map_t"].append(map_buf["t_map"][i])
+            self._log["map_time"].append(log_ts[c] if isinstance(log_ts, torch.Tensor) else float(log_ts[c]))
+            self._diags.append(MapDiag(*(map_buf[f"diag.{f}"][i] for f in MapDiag._fields)))
         return {
-            "R_odom": out["R_world"], "t_odom": out["t_world"],
-            "R_map": self.bstate.R_map, "t_map": self.bstate.t_map,
-            "R_fused": Rf, "t_fused": tf,
+            "R_odom": front_buf["R_odom"][-1], "t_odom": front_buf["t_odom"][-1],
+            "R_map": self.bstate.R_map.clone(), "t_map": self.bstate.t_map.clone(),
+            "R_fused": front_buf["R_fused"][-1], "t_fused": front_buf["t_fused"][-1],
         }
 
     def process_chunk(self, pts, masks=None, timestamps=None, imu=None, odom=None):
@@ -374,7 +472,9 @@ class LegoLoamPipeline:
             kf_ts = log_ts = xs["ts"]
         else:
             frames = np.arange(self.frame_idx, self.frame_idx + C)
-            kf_ts = torch.from_numpy(frames.astype(np.float32) * np.float32(cfg.laser.scan_period)).to(self.device)
+            # float32(i) * float32(scan_period), made on the device (no upload)
+            period = torch.full((), float(np.float32(cfg.laser.scan_period)), device=self.device)
+            kf_ts = torch.arange(self.frame_idx, self.frame_idx + C, dtype=torch.float32, device=self.device) * period
             log_ts = (frames * cfg.laser.scan_period).astype(np.float32)
         self._frames(xs, kf_ts, log_ts, odom_prev)
         f0 = self.frame_idx
@@ -754,7 +854,8 @@ class LegoLoamPipeline:
         the device: where it holds, the store's poses are rewritten in
         place, the map pose becomes the newest keyframe's corrected pose and
         the submap cache is invalidated (so the next frame rebuilds it from
-        the corrected poses); nothing is read back here."""
+        the corrected poses); nothing is read back here. Every state tensor
+        is written in place."""
         bs = self.bstate
         self._solved_at = len(self.loop_factors)
         newR, newt, (ok, c0, c1, moved) = reduced_solve(
@@ -763,12 +864,10 @@ class LegoLoamPipeline:
         newest = torch.where(bs.n_kf > 0, (bs.n_kf - 1) % bs.capacity, 0).long().reshape(1)
         set_rows(bs.kf_R, newR)  # the input rows where the gate refused
         set_rows(bs.kf_t, newt)
-        self.bstate = bs.replace(
-            R_map=torch.where(ok, newR.index_select(0, newest)[0], bs.R_map),
-            t_map=torch.where(ok, newt.index_select(0, newest)[0], bs.t_map),
-            submap_center=torch.where(ok, torch.full_like(bs.submap_center, 1e9), bs.submap_center),
-            submap_n_kf=torch.where(ok, torch.full_like(bs.submap_n_kf, -1), bs.submap_n_kf),
-        )
+        assign(bs.R_map, torch.where(ok, newR.index_select(0, newest)[0], bs.R_map))
+        assign(bs.t_map, torch.where(ok, newt.index_select(0, newest)[0], bs.t_map))
+        assign(bs.submap_center, torch.where(ok, torch.full_like(bs.submap_center, 1e9), bs.submap_center))
+        assign(bs.submap_n_kf, torch.where(ok, torch.full_like(bs.submap_n_kf, -1), bs.submap_n_kf))
         diag = torch.stack([ok.to(c0.dtype), c0, c1, moved])
         self._solve_pending = (diag, diag_ref, self._check_seq)
 
@@ -887,8 +986,7 @@ class LegoLoamPipeline:
         newR = se3.orthonormalize(newR)
         set_rows(bs.kf_R, newR)
         set_rows(bs.kf_t, newt)
-        self.bstate = bs.replace(
-            R_map=newR[newest].clone(), t_map=newt[newest].clone(),
-            submap_center=torch.full_like(bs.submap_center, 1e9),
-            submap_n_kf=torch.full_like(bs.submap_n_kf, -1),
-        )
+        assign(bs.R_map, newR[newest])
+        assign(bs.t_map, newt[newest])
+        bs.submap_center.fill_(1e9)
+        bs.submap_n_kf.fill_(-1)

@@ -1,7 +1,9 @@
 """The slice end to end: the reference's chunk runner and the port's
 `LegoLoamPipeline.run_chunked` over the same six swept scans, both starting from the
 reference's initial states (through `lego_loam_torch.convert`) and both
-drawing the reference's RANSAC scores."""
+drawing the reference's RANSAC scores. The port runs twice: with its
+host-branching frame step (the CPU's default) and with the device-resident
+`sync_free` step (the card's default), each held to the same tolerances."""
 
 import jax
 import numpy as np
@@ -18,22 +20,35 @@ N_FRAMES = 6
 
 
 @pytest.fixture(scope="module")
-def runs():
+def reference():
     ref_cfg, cfg = pair(small_ref_cfg(max_keyframes=32))
     poses = straight_trajectory(N_FRAMES, speed=0.15)
     scans = list(swept_scan_sequence(poses, cfg, noise=0.005))
 
     ref = RefPipeline(ref_cfg)
-    start_f, start_b = jax.device_get(ref.fstate), jax.device_get(ref.bstate)
+    start = jax.device_get(ref.fstate), jax.device_get(ref.bstate)
     ref.process_chunk(ref._prep_many(scans))
     ref.finalize()
+    return ref, cfg, scans, start, np.stack([t for _, t in poses])
 
-    ours = LegoLoamPipeline(cfg, device="cpu", ground_scores=lambda i: ref_scores(cfg, i))
+
+def port_run(reference, sync_free):
+    ref, cfg, scans, (start_f, start_b), truth = reference
+    ours = LegoLoamPipeline(cfg, device="cpu", ground_scores=lambda i: ref_scores(cfg, i), sync_free=sync_free)
     ours.fstate = odometry_state_from_reference(start_f, "cpu")
     ours.bstate = backend_state_from_reference(start_b, "cpu")
     out = ours.run_chunked(scans, chunk=3)  # two chunks: K1's batch and the carry across chunks
-    truth = np.stack([t for _, t in poses])
     return ref, ours, out, truth
+
+
+@pytest.fixture(scope="module")
+def runs(reference):
+    return port_run(reference, sync_free=False)
+
+
+@pytest.fixture(scope="module")
+def runs_sync_free(reference):
+    return port_run(reference, sync_free=True)
 
 
 def test_per_frame_poses(runs):
@@ -60,6 +75,11 @@ def test_per_frame_poses(runs):
     assert ate(out["map_positions"]) <= ate(ref_map) + 5e-3
 
 
+def test_per_frame_poses_sync_free(runs_sync_free):
+    """`test_per_frame_poses` for the sync_free frame step."""
+    test_per_frame_poses(runs_sync_free)
+
+
 def test_mapping_records(runs):
     """Per-frame mapping diagnostics: iteration counts and scan times equal;
     selected residuals and surf submap sizes within 1%, corner submap sizes
@@ -75,3 +95,8 @@ def test_mapping_records(runs):
         assert not rb["rejected"]
     assert [r["iterations"] for r in a] == [r["iterations"] for r in b]
     assert ours.trajectory["times"] == ref.trajectory["times"]
+
+
+def test_mapping_records_sync_free(runs_sync_free):
+    """`test_mapping_records` for the sync_free frame step."""
+    test_mapping_records(runs_sync_free)
