@@ -35,10 +35,20 @@ Phases, each printing a progress line:
      in one chunk with loop closure off (the settings of
      tests/test_presets_e2e.py at the presets' own capacities): finite
      output, map-position error < 0.5 m at every scan, K1 launched;
+  6b. the reference's ablation switches (`full_dof_odometry`,
+     `enable_map_update=False`, `ground.use_ours=False`,
+     `features.use_ours=False`, `use_shadow_points=False`,
+     `feed_mode="points"`), each set on `vlp16()` over the slice's first 8
+     scans in one chunk, graphed: finite output, K1 and K2 at the odometry
+     sites launched, map ATE < 0.1 m (no map update: map equals odometry
+     within 1e-5 m; full DOF: the largest odometry position error < 1.5
+     m); `full_dof_odometry` again with `graphs=False`, bit-identical, and
+     its graphed step's steady state beside the plain one's;
   7. the loop-closing drive: bench.py's flagship configuration (`vlp16()`,
      loop closure on, 20,480 keyframes, the rest at its defaults) over
      448 swept scans of a campus lap course (laps of 340 frames, one lap
-     and 108 revisit frames) through `warmup_loop_closure` and
+     and 108 revisit frames; rendered in up to 8 spawned processes)
+     through `warmup_loop_closure` and
      `run_chunked(chunk=32)`: at least one attempt, one accepted closure
      and one applied graph solve, finite output, the corrected keyframe
      ATE < 0.5 m and at most the uncorrected map ATE + 0.05 m, K1 and K2
@@ -75,7 +85,7 @@ Phases, each printing a progress line:
   7f. the native library (g++ from native/lego_native.cpp) against its
      plain twins on the fixture's scans: prep_cloud and the ScanFeeder
      stream bit-equal;
-  7g. the ESKF study: `run_eskf` over a generated 1,500-tick turn on the
+  7g. the ESKF study: `run_eskf` over a generated 500-tick turn on the
      card and, in a spawned process meanwhile, on the CPU (positions
      within 1e-3 m, RMSE < 0.1 m), timed;
   7h. the multi-device solves, in a child process started through
@@ -109,6 +119,15 @@ Phases, each printing a progress line:
      joining a group of one (--coordinator, --num-processes 1,
      --process-id 0) over 7c's KITTI fixture: exit 0 and 7c's pose.txt;
      each part timed;
+  7j. the campus course: `python -m lego_loam_torch.campus_run` at its
+     defaults (tools/campus_run.py's 3 laps of 700 frames, 2,080 frames
+     run in chunks of 32, loop closure on, 20,480 keyframes; rendered in up
+     to 8 spawned processes) in a child process on the card: exit 0,
+     `failed` false, `finite` true, 2,080 frames, at least 2 closures, the
+     corrected keyframe ATE < 0.5 m and at most the map ATE + 0.05 m, the
+     record's keys CAMPUS_RUN.json's plus `device`, K1 and K2 (also at
+     loop_icp) launched over the drive; the record printed beside the
+     reference's CAMPUS_RUN.json accuracy, which gates nothing;
   8. the frame step in its steady state, graphed, eager (`graphs=False`)
      and host-branching (`sync_free=False`): after warm chunks of 4 (two
      graphed, for the captures; one otherwise), one chunk timed, one under `set_sync_debug_mode("warn")` (host
@@ -155,11 +174,18 @@ CHUNK = 16
 N_PRESET = 8
 N_SCAN_RUN = 4  # scans of the per-scan `run`
 # the paths whose launches the kernels line reports, each counted alone
-PATHS = ("slice", "scan_run", "lap", "imu_lap", "cli", "reloc", "dist", "shard")
+PATHS = ("slice", "scan_run", "ablation", "lap", "imu_lap", "cli", "reloc", "dist", "shard", "campus")
+# phase 6b: the reference's ablation switches, each over the slice's first
+# N_ABLATE scans in one chunk
+ABLATIONS = ("full_dof_odometry", "no_map_update", "reference_ground", "reference_features", "no_shadow_points",
+             "points_feed")
+N_ABLATE = 8
+CAMPUS_FRAMES = 2080  # phase 7j: python -m lego_loam_torch.campus_run at its defaults
 N_CLI = 64  # swept scans of the KITTI / rosbag2 fixture (tools/make_fixtures.py's course)
-# 15 s of sensor data (5,000 until the script grew by phase 7h, 3,000 until
-# it grew by the graphed and eager comparisons)
-ESKF_TICKS = 1500
+# 5 s of sensor data (5,000 until the script grew by phase 7h, 3,000 until
+# it grew by the graphed and eager comparisons, 1,500 until it grew by
+# phases 6b and 7j)
+ESKF_TICKS = 500
 ROOT = Path(__file__).resolve().parent
 K2_SITES = ("odometry_corner", "odometry_surf", "mapping_corner", "mapping_surf")
 # The lap drive: bench.py's flagship configuration over a shorter campus
@@ -510,9 +536,9 @@ def count_syncs(fn):
     return out, sum(1 for w in caught if "synchroniz" in str(w.message))
 
 
-def slice_drive(cfg, scans, no_sync_chunk=None, **kw):
+def slice_drive(cfg, scans, no_sync_chunk=None, chunk=CHUNK, **kw):
     """A fresh pipeline (`kw`: sync_free, graphs) over the slice's scans
-    through `run_chunked`, timed, with the launch counts set to 0 just
+    through `run_chunked(chunk=chunk)`, timed, with the launch counts set to 0 just
     before and read just after. With no_sync_chunk, the same drive by
     hand (`stage_chunk` + `process_chunk` of each chunk, then the result)
     with that chunk under `torch.cuda.set_sync_debug_mode("error")`: any
@@ -528,10 +554,10 @@ def slice_drive(cfg, scans, no_sync_chunk=None, **kw):
     kcuda.reset_counts()
     t0 = time.perf_counter()
     if no_sync_chunk is None:
-        out = pipe.run_chunked(scans, chunk=CHUNK)
+        out = pipe.run_chunked(scans, chunk=chunk)
     else:
-        for k, s in enumerate(range(0, len(scans), CHUNK)):
-            xs = pipe.stage_chunk(pipe._prep_many(scans[s:s + CHUNK]))
+        for k, s in enumerate(range(0, len(scans), chunk)):
+            xs = pipe.stage_chunk(scans[s:s + chunk])
             if k == no_sync_chunk:
                 torch.cuda.set_sync_debug_mode("error")
             try:
@@ -684,17 +710,91 @@ def drive_preset(name, cfg, gt, scans):
     return {"scans": len(scans), "seconds": dt, "max_err_m": float(err.max()), "launches": launches}
 
 
+def ablation_config(cfg, name):
+    """`cfg` with one of the reference's ablation switches set."""
+    r = dataclasses.replace
+    return {
+        "full_dof_odometry": lambda: r(cfg, odometry=r(cfg.odometry, full_dof_odometry=True)),
+        "no_map_update": lambda: r(cfg, mapping=r(cfg.mapping, enable_map_update=False)),
+        "reference_ground": lambda: r(cfg, ground=r(cfg.ground, use_ours=False)),
+        "reference_features": lambda: r(cfg, features=r(cfg.features, use_ours=False)),
+        "no_shadow_points": lambda: r(cfg, features=r(cfg.features, use_shadow_points=False)),
+        "points_feed": lambda: r(cfg, pipeline=r(cfg.pipeline, feed_mode="points")),
+    }[name]()
+
+
+def run_ablations(cfg, scans, gt, plain_profile):
+    """Phase 6b: each ablation switch over the slice's first N_ABLATE scans
+    at full width in one chunk, graphed (`slice_drive`, the launch counts
+    set to 0 just before each drive). Each drive: finite output, K1 and K2
+    at the odometry sites launched, and its bound: map ATE < 0.1 m, except
+    `no_map_update` (map equals odometry within 1e-5 m) and
+    `full_dof_odometry` (the largest odometry position error < 1.5 m, the
+    reference's own check). `full_dof_odometry` again with `graphs=False`,
+    bit-identical; and its graphed step in its steady state
+    (`profile_slice`, the slice's scans) beside the plain one's."""
+    res, launches, sites = {}, collections.Counter(), collections.Counter()
+    sub, gt = scans[:N_ABLATE], gt[:N_ABLATE]
+    for name in ABLATIONS:
+        acfg = ablation_config(cfg, name)
+        pipe, out, dt, l, st, peak = slice_drive(acfg, sub, chunk=N_ABLATE)
+        launches.update(l)
+        sites.update(st)
+        pos = {k: np.asarray(out[k]) for k in ("map_positions", "odom_positions", "fused_positions")}
+        for k, a in pos.items():
+            if a.shape != (N_ABLATE, 3) or not np.isfinite(a).all():
+                raise AssertionError(f"ablation {name} {k}: shape {a.shape} or non-finite values")
+        ate_map = ate(pos["map_positions"], gt)
+        odom_err = float(np.linalg.norm(pos["odom_positions"] - gt, axis=1).max())
+        map_odom = float(np.abs(pos["map_positions"] - pos["odom_positions"]).max())
+        log(f"ablation {name}: {N_ABLATE} scans in {dt:.3f} s (graphed, first use and captures included), map ATE "
+            f"{ate_map:.4f} m, largest odometry position error {odom_err:.4f} m, map - odometry up to {map_odom:.3g} m; "
+            f"graphs {pipe.graph_stats}; launches {l}, by site {st}")
+        if name == "no_map_update":
+            ok, bound = map_odom <= 1e-5, "map equals odometry within 1e-5 m"
+        elif name == "full_dof_odometry":
+            ok, bound = odom_err < 1.5, "largest odometry position error < 1.5 m"
+        else:
+            ok, bound = ate_map < 0.1, "map ATE < 0.1 m"
+        if not ok:
+            raise AssertionError(f"ablation {name}: {bound} does not hold")
+        if not (l.get("cc_label_prop", 0) > 0 and all(st.get(f"knn_top5@{k}", 0) > 0
+                                                      for k in ("odometry_corner", "odometry_surf"))):
+            raise AssertionError(f"ablation {name}: a kernel of the path was not launched: {l} {st}")
+        res[name] = {"seconds": dt, "ate_map_m": ate_map, "max_odom_err_m": odom_err, "map_minus_odom_m": map_odom,
+                     "bound": bound, "launches": l, "launches_by_site": st, "graphs": dict(pipe.graph_stats)}
+        rpys = np.asarray(pipe.trajectory["rpys"])
+        del pipe
+        if name == "full_dof_odometry":
+            epipe, eout, edt, _, _, _ = slice_drive(acfg, sub, chunk=N_ABLATE, graphs=False)
+            same = all(np.array_equal(pos[k], np.asarray(eout[k])) for k in pos) and np.array_equal(
+                rpys, np.asarray(epipe.trajectory["rpys"]))
+            del epipe
+            log(f"ablation {name}: graphs=False {edt:.3f} s; graphed and eager bit-identical: {same}")
+            if not same:
+                raise AssertionError(f"ablation {name}: the graphed run differs from graphs=False")
+            prof = profile_slice(acfg, scans, f"graphed {name}")
+            log(f"ablation {name}: graphed steady state {prof['scans_per_s']:.3f} scans/s and "
+                f"{prof['device_kernels_per_scan']} device kernels a scan, against {plain_profile['scans_per_s']:.3f} "
+                f"and {plain_profile['device_kernels_per_scan']} without the switch (profile phase)")
+            res[name].update(eager_seconds=edt, graphed_eager_bit_identical=same, profile=prof)
+    return {"switches": res, "launches": dict(launches), "launches_by_site": dict(sites)}
+
+
 
 def lap_course(cfg):
     """bench.py's campus course with laps of LAP_STRAIGHT/LAP_TURN frames a
     side, cut after N_LAP frames: true poses and positions and swept renders
-    (1 cm noise, seed 100 + i), made before any timing."""
-    from lego_loam_torch.io.synthetic import campus_world, lap_trajectory, render_scan_swept
+    (1 cm noise, seed 100 + i; in RENDER_WORKERS processes), made before any
+    timing."""
+    from lego_loam_torch.campus_run import RENDER_WORKERS, render_pool, render_swept
+    from lego_loam_torch.io.synthetic import campus_world, lap_trajectory
 
     poses = lap_trajectory(2, straight_frames=LAP_STRAIGHT, turn_frames=LAP_TURN)
     world = campus_world(poses[:N_LAP])
-    scans = [render_scan_swept(poses[max(i - 1, 0)], poses[i], cfg, world, noise=0.01, seed=100 + i)
-             for i in range(N_LAP + N_CONT)]
+    with render_pool(RENDER_WORKERS) as pool:
+        scans = render_swept([(poses[max(i - 1, 0)], poses[i], cfg, world, 100 + i) for i in range(N_LAP + N_CONT)],
+                             pool)
     poses = poses[:N_LAP]
     return poses, np.stack([t for _, t in poses]), scans[:N_LAP], scans[N_LAP:]
 
@@ -1517,6 +1617,61 @@ def run_dist(d):
     return res, tuple(x.cuda() for x in clouds)
 
 
+def run_campus(d):
+    """Phase 7j: `python -m lego_loam_torch.campus_run` at its defaults (the
+    3-lap, 2,080-frame campus course of tools/campus_run.py, loop closure
+    on, 20,480 keyframes) in a child process on the card, its record and
+    products under `d`, its scan cache in `d`. Checks: exit 0, `failed`
+    false and `finite` true, CAMPUS_FRAMES frames, at least 2 closures (two
+    revisit laps), the corrected keyframe ATE < 0.5 m and at most the map
+    ATE + 0.05 m, the record's keys those of the reference's
+    CAMPUS_RUN.json plus `device`, and K1 and K2 (at the four per-scan
+    sites and at loop_icp) launched over the drive (launches.json). The
+    record is printed beside the reference's accuracy fields, which gate
+    nothing."""
+    out, rec_path = os.path.join(d, "out_campus"), os.path.join(d, "campus.json")
+    env = dict(os.environ, LEGO_SCAN_CACHE=os.path.join(d, "scan_cache"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "lego_loam_torch.campus_run", "--out", out, "--json-out", rec_path],
+                       cwd=ROOT, capture_output=True, text=True, timeout=900, env=env)
+    wall = time.perf_counter() - t0
+    for line in r.stdout.splitlines():
+        if not line.startswith("{"):
+            log(f"  campus_run: {line}")
+    if r.returncode != 0:
+        raise AssertionError(f"lego_loam_torch.campus_run exited {r.returncode}:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    with open(rec_path) as fh:
+        rec = json.load(fh)
+    with open(os.path.join(out, "launches.json")) as fh:
+        counts = json.load(fh)
+    with open(ROOT / "CAMPUS_RUN.json") as fh:
+        ref = json.load(fh)
+    launches, sites = counts["launches"], counts["launches_by_site"]
+    log(f"campus: {rec['frames']} frames in {wall:.1f} s of process (renders and first use included), "
+        f"{rec['scans_per_sec']:.3f} scans/s steady, {rec['keyframes_total']} keyframes, {rec['loop_closures']} "
+        f"closures; ATE map {rec['ate_map_m']:.4f} m, corrected keyframes {rec['ate_corrected_kf_m']:.4f} m, odometry "
+        f"{rec['ate_odom_only_m']:.4f} m; RPE/100 m map {rec['rpe_100m_map']:.4f} m, odometry "
+        f"{rec['rpe_100m_odom']:.4f} m; solve {rec['loop_solve_ms']:.3f} ms, attempt {rec['loop_attempt_ms']:.3f} ms "
+        f"(CUDA events); {rec['device']}; graphs {counts['graph_stats']}")
+    acc = ("keyframes_total", "loop_closures", "ate_map_m", "ate_corrected_kf_m", "ate_odom_only_m", "rpe_100m_map",
+           "rpe_100m_odom")
+    log("campus: the reference's CAMPUS_RUN.json (the JAX package on a TPU; accuracy only, gates nothing): "
+        + ", ".join(f"{k} {ref[k]}" for k in acc))
+    log(f"campus: launches {launches}, by site {sites}")
+    if set(rec) != set(ref) | {"device"}:
+        raise AssertionError(f"campus: record keys {sorted(rec)} are not CAMPUS_RUN.json's plus device")
+    if rec["failed"] or not rec["finite"] or rec["frames"] != CAMPUS_FRAMES or rec["loop_closures"] < 2:
+        raise AssertionError(f"campus: failed {rec['failed']}, finite {rec['finite']}, frames {rec['frames']}, "
+                             f"closures {rec['loop_closures']}")
+    if not (rec["ate_corrected_kf_m"] < 0.5 and rec["ate_corrected_kf_m"] <= rec["ate_map_m"] + 0.05):
+        raise AssertionError(f"campus: corrected keyframe ATE {rec['ate_corrected_kf_m']:.4f} m "
+                             f"(map ATE {rec['ate_map_m']:.4f} m)")
+    if not (launches.get("cc_label_prop", 0) > 0
+            and all(sites.get(f"knn_top5@{k}", 0) > 0 for k in K2_SITES + ("loop_icp",))):
+        raise AssertionError(f"campus: a kernel of the path was not launched: {launches} {sites}")
+    return {"record": rec, "process_seconds": wall, "launches": launches, "launches_by_site": sites,
+            "graphs": counts["graph_stats"]}
+
 def profile_slice(cfg, scans, mode, **kw):
     """One frame step (`kw`: sync_free, graphs) in its steady state: a
     fresh pipeline over chunks of 4 of the slice's scans (staged before),
@@ -1618,6 +1773,11 @@ def main() -> int:
     from lego_loam_torch.ops.knn import top5_l2, top5_l2_plain
     from lego_loam_torch.ops.segmentation import label_prop, label_prop_plain
 
+    t_start = time.perf_counter()
+
+    def elapsed(phase):
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase {phase} done")
+
     dev = torch.device("cuda", 0)
     card = card_line()
     log(card)
@@ -1650,6 +1810,7 @@ def main() -> int:
         k1_masks[pcfg.laser.num_vertical_scans], k1_err = masks, max(k1_err, err)
         presets[name] = (pcfg, pgt, pscans)
     shapes = check_k2(dev)
+    elapsed("1-4")
     summary, launches, map_call, slice_poses = run_slice(cfg, scans, gt)
     dist_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dist_")
     dd = dist_tmp.name
@@ -1657,22 +1818,30 @@ def main() -> int:
     np.save(os.path.join(dd, "slice_scans.npy"), np.stack(scans))  # phase 7i's sharded slice
     np.savez(os.path.join(dd, "slice_poses.npz"), gt=gt, **slice_poses)
     summary["scan_run"] = run_per_scan(cfg, scans, gt)
+    elapsed("5")
     summary["profile"] = {mode: profile_slice(cfg, scans, mode, **kw) for mode, kw in (
         ("graphed", {}), ("eager", {"graphs": False}), ("host-branching", {"sync_free": False, "graphs": False}))}
+    elapsed("8 (the steady state)")
     summary["presets"] = {name: drive_preset(name, *args) for name, args in presets.items()}
+    elapsed("6")
+    summary["ablation"] = run_ablations(cfg, scans, gt, summary["profile"]["graphed"])
+    elapsed("6b")
     lcfg = lap_config()
     t0 = time.perf_counter()
     lap_poses, lap_gt, lap_scans, cont_scans = lap_course(lcfg)
     log(f"lap: rendered {N_LAP + N_CONT} swept scans in {time.perf_counter() - t0:.1f} s")
     np.save(os.path.join(dd, "lap_cont_scans.npy"), np.stack(cont_scans))  # phase 7i's continuation
     summary["lap"], icp_clouds = run_lap(lcfg, lap_gt, lap_scans, os.path.join(dd, "lap.npz"))
+    elapsed("7")
     summary["lap_continuation"] = run_lap_continuation(lcfg, os.path.join(dd, "lap.npz"), cont_scans,
                                                        os.path.join(dd, "lap_cont_kf.npz"))
+    elapsed("7, the continuation")
     icfg = dataclasses.replace(
         lcfg, pipeline=dataclasses.replace(lcfg.pipeline, use_imu_undistortion=True),
         odometry=dataclasses.replace(lcfg.odometry, odom_prior_mode="init"),
     )
     summary["imu_lap"] = run_imu_lap(icfg, lap_poses, lap_gt, lap_scans, summary["lap"]["ate_odom_m"])
+    elapsed("7b")
     gc.collect()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
@@ -1681,15 +1850,24 @@ def main() -> int:
         log(f"CLI fixture: {N_CLI} swept scans rendered and written as KITTI and rosbag2 in "
             f"{time.perf_counter() - t0:.1f} s")
         summary["cli"] = run_cli(cli_truth, seq, bag, d)
+        elapsed("7c")
         summary["checkpoint"] = run_checkpoint(cfg, cli_scans, d)
         summary["reloc"] = run_reloc(cfg, cli_truth, os.path.join(d, "out_kitti"), bag, d)
         summary["native"] = run_native(seq, cli_scans, cfg)
+        elapsed("7d-7f")
         summary["eskf"] = run_eskf_phase(d)
+        elapsed("7g")
         with open(os.path.join(dd, "cli.json"), "w") as fh:  # phase 7i's CLI over phase 7c's fixture
             json.dump({"seq": seq, "pose": os.path.join(d, "out_kitti", "pose.txt")}, fh)
         summary["dist"], sharded_clouds = run_dist(dd)
     summary["shard"] = summary["dist"].pop("shard")
     dist_tmp.cleanup()
+    elapsed("7h and 7i")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_campus_") as d:
+        summary["campus"] = run_campus(d)
+    elapsed("7j")
 
     # K1 times at the main path's shape: one launch per chunk of CHUNK scans
     k1_rows = []
@@ -1738,6 +1916,8 @@ def main() -> int:
                           "library_ms": lib, "bound_ms": bound, "bound_by": bound_by, "bound_share": bound / dev_ms,
                           "launches": (summary[path] if path != "slice" else summary)["launches_by_site"].get(site, 0),
                           "launches_in": path, "launches_imu_lap": summary["imu_lap"]["launches_by_site"].get(site, 0),
+                          "launches_ablation": summary["ablation"]["launches_by_site"].get(site, 0),
+                          "launches_campus": summary["campus"]["launches_by_site"].get(site, 0),
                           "max_abs_err": err})
         log(f"K2 {name} Q={Q} T={T} ({tm.shape[0]} unmasked): {ms:.4f} ms a call, kernel alone {dev_ms:.4f} ms, "
             f"twin {plain:.4f} ms, cdist+topk {lib:.4f} ms, bound {bound:.5f} ms ({bound_by}), "

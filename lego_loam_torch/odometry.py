@@ -27,6 +27,7 @@ import torch
 from .config import LegoLoamConfig
 from .control import cond
 from .math import se3
+from .math.jacobi import jacobi_eigh
 from .math.linalg3 import eigh3x3, eigvals3x3_components, eigvec_extreme_components
 from .ops.knn import top5_l2
 from .types import FeatureCloud, ScanFeatures
@@ -168,23 +169,26 @@ def _gn_step(q_xyz, n, d, w, dof_idx, cfg: LegoLoamConfig):
     """One masked-DOF Gauss-Newton step with eigenvalue degeneracy
     projection and a per-iteration trust region. Returns the 6-twist and
     its (deg, cm) norms. The Jacobian is unscaled by the sweep time, as in
-    the reference. The 3x3 eigenproblem is the closed form of
-    `math/linalg3` in float64 (`torch.linalg.eigh` reads its error code back
-    on the card), and the DOFs are placed by a stack, not a host index."""
+    the reference. The eigenproblem runs in float64 without a read-back
+    (`torch.linalg.eigh` reads its error code back on the card): a 3-DOF
+    stage takes the closed form of `math/linalg3`, a 6-DOF stage
+    (`full_dof_odometry`) cyclic Jacobi (`math/jacobi`). The DOFs are
+    placed by a stack, not a host index."""
     o = cfg.odometry
     gx, gy, gz = n
     qx, qy, qz = q_xyz[:, 0], q_xyz[:, 1], q_xyz[:, 2]
     cols6 = (qy * gz - qz * gy, qz * gx - qx * gz, qx * gy - qy * gx, gx, gy, gz)
-    J = torch.stack([cols6[i] * w for i in dof_idx], dim=1)  # (N, 3)
+    J = torch.stack([cols6[i] * w for i in dof_idx], dim=1)  # (N, k), k = 3 or 6
     H = J.T @ J
     g = J.T @ (d * w)
-    evals, evecs = (x.to(H.dtype) for x in eigh3x3(H.to(torch.float64)))
+    eigh = eigh3x3 if len(dof_idx) == 3 else jacobi_eigh
+    evals, evecs = (x.to(H.dtype) for x in eigh(H.to(torch.float64)))
     keep = (evals >= o.eigen_threshold).to(H.dtype)
     ginv = torch.where(evals > 1e-12, 1.0 / torch.clamp(evals, min=1e-12), 0.0)
-    delta3 = -(evecs @ ((evecs.T @ g) * ginv * keep)) * o.step_scale
-    delta3 = torch.where((w > 0).sum() >= o.min_correspondences, delta3, 0.0)
+    step = -(evecs @ ((evecs.T @ g) * ginv * keep)) * o.step_scale
+    step = torch.where((w > 0).sum() >= o.min_correspondences, step, 0.0)
     zero = torch.zeros((), dtype=H.dtype, device=H.device)
-    delta = torch.stack([delta3[dof_idx.index(i)] if i in dof_idx else zero for i in range(6)])
+    delta = torch.stack([step[dof_idx.index(i)] if i in dof_idx else zero for i in range(6)])
 
     rot_cap = o.step_clamp_rot_deg * math.pi / 180.0
     rot_n = torch.linalg.norm(delta[:3])

@@ -242,14 +242,20 @@ class LegoLoamPipeline:
     def stage_chunk(self, pts, masks=None, timestamps=None, imu=None, odom=None) -> dict:
         """Move one chunk's inputs to the device without processing them.
 
-        pts: a `_prep_many` feed, or a (C, max_points, 3) array with its
-        (C, max_points) masks. Range codes go up as int32; timestamps, when
+        pts: a `_prep_many` feed, a (C, max_points, 3) array with its
+        (C, max_points) masks, or a list of raw (N, 3) clouds (packed here
+        by `_prep_many`). Range codes go up as int32; timestamps, when
         given, as float32. With `use_imu_undistortion`, imu is the chunk's
         sample windows {"t": (C, S), "rpy": (C, S, 3), "acc": (C, S, 3),
         "mask": (C, S)} (S = imu_window; all masked when None); with the
         wheel-odometry prior, odom is ((C, 3, 3), (C, 3)) poses (identity
         when None), kept on the host as well for `process_chunk`."""
-        prep = pts if isinstance(pts, dict) else {"pts": pts, "mask": masks}
+        if isinstance(pts, dict):
+            prep = pts
+        elif masks is not None:
+            prep = {"pts": pts, "mask": masks}
+        else:
+            prep = self._prep_many(pts)
         dev = self.device
         xs = {}
         for k, v in prep.items():
@@ -281,7 +287,8 @@ class LegoLoamPipeline:
     def stage_chunk_async(self, pts, masks=None, timestamps=None, imu=None, odom=None):
         """`stage_chunk` in a background thread; returns a Future of the
         staged feed. Call it for chunk c+1 right after dispatching chunk c,
-        so the host-side transfer overlaps the frame loop."""
+        so the host-side packing (of a list of raw clouds) and transfer
+        overlap the frame loop."""
         return self._stager_submit(self.stage_chunk, pts, masks, timestamps, imu, odom)
 
     # -- chunk runner ---------------------------------------------------------
@@ -450,10 +457,8 @@ class LegoLoamPipeline:
         cfg = self.cfg
         if isinstance(pts, dict) and isinstance(next(iter(pts.values())), torch.Tensor):
             xs = pts
-        elif isinstance(pts, dict) or masks is not None:
-            xs = self.stage_chunk(pts, masks, timestamps, imu, odom)
         else:
-            xs = self.stage_chunk(self._prep_many(pts), timestamps=timestamps, imu=imu, odom=odom)
+            xs = self.stage_chunk(pts, masks, timestamps, imu, odom)
         C = int(xs["rimg" if "rimg" in xs else "pts"].shape[0])
         odom_prev = None
         if self._use_odom:
@@ -599,7 +604,7 @@ class LegoLoamPipeline:
 
         def prep_and_stage(s0):
             ts = None if timestamps is None else np.asarray(timestamps[s0 : s0 + chunk], np.float32)
-            return self.stage_chunk(self._prep_many(scans[s0 : s0 + chunk]), timestamps=ts)
+            return self.stage_chunk(scans[s0 : s0 + chunk], timestamps=ts)
 
         s = 0
         if T >= chunk:
