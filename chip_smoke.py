@@ -31,6 +31,13 @@ Phases, each printing a progress line:
      and map attitudes bit-identical; then the per-scan entry point, `run` over its
      first 4 scans through `process_scan` (float32 points projected on the
      card, the same graphs at C = 1), with the same checks;
+  5b. the keyframe ring past capacity (tests/test_backend.py:182's checks):
+     the slice's 32 scans with `max_keyframes=8`, loop closure on and
+     anchors every 4 keyframes, graphed: 32 keyframes appended, the 8
+     resident slots in time order with the newest at 3.1 s, map ATE
+     < 0.15 m, K1 and K2 launched, the steps replayed across the wraps with
+     no recapture, and a chain-only `_optimize_graph` moving the newest
+     pose < 0.05 m;
   6. short drives of `vlp32c()` and `hdl64e()` at full width, 8 scans each
      in one chunk with loop closure off (the settings of
      tests/test_presets_e2e.py at the presets' own capacities): finite
@@ -44,12 +51,22 @@ Phases, each printing a progress line:
      within 1e-5 m; full DOF: the largest odometry position error < 1.5
      m); `full_dof_odometry` again with `graphs=False`, bit-identical, and
      its graphed step's steady state beside the plain one's;
+  6c. `python -m lego_loam_torch.bench` in this process, its straight
+     course at BENCH_WARMUP_CHUNKS=1 BENCH_CHUNKS=1 (64 swept scans,
+     `bench.measure_course`: finite output, map ATE < 0.1 m, K1 and K2
+     launched, no attempt, no recapture), then `--ablate` over the same
+     scans with one warm and one timed chunk (`bench.ablate`, seven
+     variants, each: finite output, map ATE < 0.1 m or twice the port's
+     CPU rehearsal where that is above 0.05 m, K1 and K2 launched, no
+     recapture); the bench's flagship part is phase 7's drive, and the
+     bench's line (bench.py's keys and the port's, at least one attempt,
+     finite values) is made from the two after phase 7;
   7. the loop-closing drive: bench.py's flagship configuration (`vlp16()`,
      loop closure on, 20,480 keyframes, the rest at its defaults) over
      448 swept scans of a campus lap course (laps of 340 frames, one lap
      and 108 revisit frames; rendered in up to 8 spawned processes)
-     through `warmup_loop_closure` and
-     `run_chunked(chunk=32)`: at least one attempt, one accepted closure
+     through `warmup_loop_closure` and the bench's timed loop
+     (`bench.run_course`, chunks of 32, one warm): at least one attempt, one accepted closure
      and one applied graph solve, finite output, the corrected keyframe
      ATE < 0.5 m and at most the uncorrected map ATE + 0.05 m, K1 and K2
      (also at loop_icp) launched; then K2 on one real loop_icp call's
@@ -58,9 +75,10 @@ Phases, each printing a progress line:
      times, and `reduced_solve` on the card against the same call on the
      CPU; then the lap's final state (`checkpoint.save`) loaded into a
      fresh pipeline, graphed and with `graphs=False`, each continued over
-     the course's next 64 scans (frames 448-511, revisiting): at least one
-     attempt each and the final keyframes bit-identical (the applied
-     solves and `checkpoint.load` write the state in place);
+     the course's next 32 scans (frames 448-479, revisiting; 64 until the
+     script grew by phases 5b, 6c and 7k): at least one attempt each and
+     the final keyframes bit-identical (the applied solves and
+     `checkpoint.load` write the state in place);
   7b. the IMU lap: the same 448 scans with the lap's configuration plus
      `use_imu_undistortion=True` and `odom_prior_mode="init"`, 200 Hz IMU
      windows and a wheel-odometry stream made from the course's poses,
@@ -85,7 +103,7 @@ Phases, each printing a progress line:
   7f. the native library (g++ from native/lego_native.cpp) against its
      plain twins on the fixture's scans: prep_cloud and the ScanFeeder
      stream bit-equal;
-  7g. the ESKF study: `run_eskf` over a generated 500-tick turn on the
+  7g. the ESKF study: `run_eskf` over a generated 300-tick turn on the
      card and, in a spawned process meanwhile, on the CPU (positions
      within 1e-3 m, RMSE < 0.1 m), timed;
   7h. the multi-device solves, in a child process started through
@@ -104,7 +122,10 @@ Phases, each printing a progress line:
      run twice, bit-identical; `build_grid` + `query_knn` over that call's
      32,768-slot surf submap with its 4,096 queries against K2 (recall
      > 0.98 where the 5th neighbour lies within the 1 m cell); the NCCL
-     set-up and each solve timed;
+     set-up and each solve timed; `weak_scaling.measure` (tools/
+     weak_scaling.py's problem at 2,048 poses, stride 16, "pcg"): finite
+     poses, its time and collective bytes, and the same solve on the CPU
+     over gloo within 2e-2 m;
   7i. the sharded keyframe store, in phase 7h's NCCL rank (world size 1):
      the slice's 32 scans through `run_chunked` with the store laid out in
      row blocks right after construction (`distributed.
@@ -112,22 +133,28 @@ Phases, each printing a progress line:
      bit-identical to phase 5's unsharded run, map ATE < 0.1 m, K2 launched
      at mapping_corner and mapping_surf, the state's bytes on the rank
      printed; the lap's saved state loaded into a sharded pipeline and
-     continued over the lap course's next 64 frames (448-511, revisiting):
+     continued over the lap course's next 32 frames (448-479, revisiting):
      at least one attempt on the sharded store, final keyframe poses
      bit-identical to the unsharded continuation of phase 7 (graphed), K2
      launched at loop_icp; the CLI
      joining a group of one (--coordinator, --num-processes 1,
      --process-id 0) over 7c's KITTI fixture: exit 0 and 7c's pose.txt;
      each part timed;
-  7j. the campus course: `python -m lego_loam_torch.campus_run` at its
-     defaults (tools/campus_run.py's 3 laps of 700 frames, 2,080 frames
-     run in chunks of 32, loop closure on, 20,480 keyframes; rendered in up
-     to 8 spawned processes) in a child process on the card: exit 0,
-     `failed` false, `finite` true, 2,080 frames, at least 2 closures, the
+  7j. the campus course: `python -m lego_loam_torch.campus_run --laps 2
+     --render-variants 2` (tools/campus_run.py's laps of 700 frames, 1,376
+     frames run in chunks of 32, loop closure on, 20,480 keyframes; 2 noise
+     variants of the lap rendered in up to 8 spawned processes) in a child
+     process on the card: exit 0,
+     `failed` false, `finite` true, 1,376 frames, at least 2 closures, the
      corrected keyframe ATE < 0.5 m and at most the map ATE + 0.05 m, the
      record's keys CAMPUS_RUN.json's plus `device`, K1 and K2 (also at
      loop_icp) launched over the drive; the record printed beside the
      reference's CAMPUS_RUN.json accuracy, which gates nothing;
+  7k. `python -m lego_loam_torch.diag_campus --frames 336` in this process
+     (the 3-lap course's first straight, turn and second straight, chunks
+     of 16, loop closure off): its table and step-error lines printed,
+     finite positions, all three segments reached, K1 and K2 launched,
+     no recapture;
   8. the frame step in its steady state, graphed, eager (`graphs=False`)
      and host-branching (`sync_free=False`): after warm chunks of 4 (two
      graphed, for the captures; one otherwise), one chunk timed, one under `set_sync_debug_mode("warn")` (host
@@ -174,25 +201,39 @@ CHUNK = 16
 N_PRESET = 8
 N_SCAN_RUN = 4  # scans of the per-scan `run`
 # the paths whose launches the kernels line reports, each counted alone
-PATHS = ("slice", "scan_run", "ablation", "lap", "imu_lap", "cli", "reloc", "dist", "shard", "campus")
+PATHS = ("slice", "scan_run", "ring", "ablation", "bench", "bench_ablate", "lap", "imu_lap", "cli", "reloc", "dist",
+         "shard", "campus", "diag")
+N_RING = 8  # phase 5b: keyframe slots of the ring driven past capacity by the slice's scans
+# phase 6c: the bench's straight course at BENCH_WARMUP_CHUNKS=1 BENCH_CHUNKS=1,
+# and --ablate over the same scans, 1 warm and 1 timed chunk of 32
+BENCH_WARM, BENCH_CHUNKS, BENCH_CHUNK = 1, 1, 32
+# phase 6c's map-ATE bound per --ablate variant: 0.1 m, or twice the port's
+# CPU rehearsal of the same drive where that rehearsal is above 0.05 m
+ABLATE_ATE_BOUND = {"rigid_scans": 2 * 0.0882}  # rigid_scans' rehearsal: 0.0882 m
+N_DIAG = 336  # phase 7k: diag_campus frames (>= 325: the first straight, turn and second straight)
 # phase 6b: the reference's ablation switches, each over the slice's first
 # N_ABLATE scans in one chunk
 ABLATIONS = ("full_dof_odometry", "no_map_update", "reference_ground", "reference_features", "no_shadow_points",
              "points_feed")
 N_ABLATE = 8
-CAMPUS_FRAMES = 2080  # phase 7j: python -m lego_loam_torch.campus_run at its defaults
+# phase 7j: python -m lego_loam_torch.campus_run at its defaults but 2 laps
+# and 2 noise variants of the lap (3 and 3 until the script grew by phases
+# 5b, 6c and 7k): 1,376 frames of 1,400
+CAMPUS_LAPS, CAMPUS_VARIANTS, CAMPUS_FRAMES = 2, 2, 1376
 N_CLI = 64  # swept scans of the KITTI / rosbag2 fixture (tools/make_fixtures.py's course)
-# 5 s of sensor data (5,000 until the script grew by phase 7h, 3,000 until
+# 3 s of sensor data (5,000 until the script grew by phase 7h, 3,000 until
 # it grew by the graphed and eager comparisons, 1,500 until it grew by
-# phases 6b and 7j)
-ESKF_TICKS = 500
+# phases 6b and 7j, 500 until it grew by phases 5b, 6c and 7k)
+ESKF_TICKS = 300
 ROOT = Path(__file__).resolve().parent
 K2_SITES = ("odometry_corner", "odometry_surf", "mapping_corner", "mapping_surf")
 # The lap drive: bench.py's flagship configuration over a shorter campus
 # lap (340 frames, 34 s, longer than the 30 s loop_time_gap), cut after one
 # lap and 108 revisit frames: 14 chunks of 32.
 LAP_STRAIGHT, LAP_TURN, N_LAP, LAP_CHUNK = 70, 15, 448, 32
-N_CONT = 64  # phase 7i: the lap's frames 448-511, continued from its saved state
+# phases 7 and 7i: the lap's frames 448-479, continued from its saved state
+# (448-511 until the script grew by phases 5b, 6c and 7k)
+N_CONT = 32
 
 
 def log(msg):
@@ -662,6 +703,51 @@ def run_per_scan(cfg, scans, gt):
             "launches_by_site": sites}
 
 
+def run_ring(cfg, scans, gt):
+    """Phase 5b: the keyframe ring past capacity, the checks of
+    tests/test_backend.py:182 on the card. The slice's scans (4 times the
+    ring) with `max_keyframes=N_RING`, loop closure on and anchors every 4
+    keyframes, graphed (`slice_drive`): every keyframe appended (n_kf ==
+    the scans, not clamped), the N_RING resident slots in time order with
+    the newest at (n - 1) x the scan period, map ATE < 0.15 m, finite
+    output, K1 and K2 at the four per-scan sites launched, the steps
+    replayed across the wraps with no recapture; then a chain-only
+    `_optimize_graph` over the wrapped window moves the newest pose
+    < 0.05 m."""
+    rcfg = dataclasses.replace(cfg, mapping=dataclasses.replace(
+        cfg.mapping, max_keyframes=N_RING, enable_loop_closure=True, posegraph_anchor_stride=4))
+    pipe, out, dt, launches, sites, peak = slice_drive(rcfg, scans)
+    stats = dict(pipe.graph_stats)
+    n = len(scans)
+    for k in ("map_positions", "odom_positions", "fused_positions"):
+        a = np.asarray(out[k])
+        if a.shape != (n, 3) or not np.isfinite(a).all():
+            raise AssertionError(f"ring {k}: shape {a.shape} or non-finite values")
+    n_kf, slots = int(pipe.bstate.n_kf), pipe.bstate.ordered_slots()
+    times = pipe.bstate.kf_time.cpu().numpy()[slots]
+    ate_map = ate(out["map_positions"], gt)
+    t_before = pipe.bstate.t_map.cpu().numpy()
+    pipe._optimize_graph()
+    moved = float(np.linalg.norm(pipe.bstate.t_map.cpu().numpy() - t_before))
+    newest = (n - 1) * rcfg.laser.scan_period
+    log(f"ring: {n} scans through {N_RING} keyframe slots in {dt:.3f} s (graphed, first use included), {n_kf} "
+        f"keyframes appended, resident slots {slots.tolist()} at times {np.round(times, 3).tolist()}; map ATE "
+        f"{ate_map:.4f} m; a chain-only graph solve moved the newest pose {moved:.2e} m; graphs {stats}; launches "
+        f"{launches}, by site {sites}")
+    if not (n_kf == n and len(slots) == N_RING and np.all(np.diff(times) > 0) and abs(times[-1] - newest) < 1e-4):
+        raise AssertionError(f"ring: {n_kf} keyframes, slots {slots}, times {times}")
+    if not (ate_map < 0.15 and moved < 0.05):
+        raise AssertionError(f"ring: map ATE {ate_map:.4f} m, the chain-only solve moved {moved:.4f} m")
+    if not (launches.get("cc_label_prop", 0) > 0 and all(sites.get(f"knn_top5@{k}", 0) > 0 for k in K2_SITES)):
+        raise AssertionError(f"ring: a kernel of the path was not launched: {launches} {sites}")
+    if not (stats["captures"] >= 3 and stats["replays"] > 0 and stats["recaptures"] == 0):
+        raise AssertionError(f"ring: the steps did not replay across the wrap without recapture: {stats}")
+    del pipe
+    return {"scans": n, "seconds": dt, "n_kf": n_kf, "slots": slots.tolist(), "times": times.tolist(),
+            "ate_map_m": ate_map, "chain_solve_move_m": moved, "graphs": stats, "launches": launches,
+            "launches_by_site": sites}
+
+
 def preset_scans(cfg, n):
     """The rigid scans of tests/test_presets_e2e.py: a straight drive at
     0.12 m and 0.5 deg a frame, 1 cm range noise."""
@@ -782,6 +868,85 @@ def run_ablations(cfg, scans, gt, plain_profile):
 
 
 
+def bench_straight_scans(cfg):
+    """The bench's straight course at BENCH_WARMUP_CHUNKS=1 BENCH_CHUNKS=1:
+    its true positions and swept renders (in this process: for 64 scans a
+    pool's start costs more than it saves; not cached)."""
+    from lego_loam_torch import bench
+    from lego_loam_torch.campus_run import render_swept
+
+    poses, jobs = bench.straight_course((BENCH_WARM + BENCH_CHUNKS) * BENCH_CHUNK, cfg)
+    return bench.truth(poses), render_swept(jobs)
+
+
+def run_bench_straight(scans, gt, dev):
+    """Phase 6c, the bench's straight course: `bench.measure_course` (a
+    fresh pipeline of the bench's configuration, `warmup_loop_closure`, one
+    warm chunk, one timed, `finalize`) with the launch counts set to 0 just
+    before and read just after: finite output, map ATE < 0.1 m, K1 and K2
+    at the four per-scan sites launched, no attempt (the course never
+    revisits), the steps replayed with no recapture."""
+    from lego_loam_torch import bench
+    from lego_loam_torch import cuda as kcuda
+
+    kcuda.reset_counts()
+    rec = bench.measure_course(bench.bench_config(), scans, gt, BENCH_WARM, BENCH_CHUNK, dev)
+    launches, sites = dict(kcuda.LAUNCHES), dict(kcuda.SITES)
+    g = rec["graph_stats"]
+    log(f"bench straight: {len(scans)} scans, {rec['scans_per_sec']:.3f} scans/s over the timed chunk, map ATE "
+        f"{rec['ate_map_m']:.4f} m, {rec['loop_attempts']} attempts; graphs {g}; launches {launches}, by site {sites}")
+    if not (rec["finite"] and rec["ate_map_m"] < 0.1 and rec["loop_attempts"] == 0):
+        raise AssertionError(f"bench straight: {rec}")
+    if not (launches.get("cc_label_prop", 0) > 0 and all(sites.get(f"knn_top5@{k}", 0) > 0 for k in K2_SITES)):
+        raise AssertionError(f"bench straight: a kernel of the path was not launched: {launches} {sites}")
+    if not (g["replays"] > 0 and g["recaptures"] == 0):
+        raise AssertionError(f"bench straight: graphs {g}")
+    return {**rec, "launches": launches, "launches_by_site": sites}
+
+
+def run_bench_ablate(scans, gt, dev):
+    """Phase 6c, `python -m lego_loam_torch.bench --ablate` in this
+    process (`bench.ablate`: tools/ablate_bench.py's seven variants of the
+    bench's configuration, each a fresh pipeline over the same scans, one
+    warm chunk and one timed), the launch counts set to 0 just before and
+    read just after. Each variant: finite output, its map-ATE bound
+    (ABLATE_ATE_BOUND), K1 and K2 at the four per-scan sites launched, its
+    steps replayed with no recapture."""
+    from lego_loam_torch import bench
+    from lego_loam_torch import cuda as kcuda
+
+    kcuda.reset_counts()
+    res = bench.ablate(bench.bench_config(), scans, gt, BENCH_CHUNK, BENCH_WARM, BENCH_CHUNKS, dev,
+                       out=lambda line: log(f"bench --ablate: {line}"))
+    launches, sites = dict(kcuda.LAUNCHES), dict(kcuda.SITES)
+    for name, r in res.items():
+        bound = ABLATE_ATE_BOUND.get(name, 0.1)
+        g, l, st = r["graph_stats"], r["launches"], r["launches_by_site"]
+        log(f"bench --ablate {name}: {r['scans_per_sec']:.3f} scans/s, map ATE {r['ate_map_m']:.4f} m (bound "
+            f"{bound} m), graphs {g}, launches {l}")
+        if not (r["finite"] and r["ate_map_m"] < bound):
+            raise AssertionError(f"bench --ablate {name}: finite {r['finite']}, map ATE {r['ate_map_m']:.4f} m")
+        if not (l.get("cc_label_prop", 0) > 0 and all(st.get(f"knn_top5@{k}", 0) > 0 for k in K2_SITES)):
+            raise AssertionError(f"bench --ablate {name}: a kernel of the path was not launched: {l} {st}")
+        if not (g["replays"] > 0 and g["recaptures"] == 0):
+            raise AssertionError(f"bench --ablate {name}: graphs {g}")
+    return {"variants": res, "launches": launches, "launches_by_site": sites}
+
+
+def check_bench_line(straight, flagship, card):
+    """The bench's line from phase 6c's straight course and phase 7's lap
+    (driven through `bench.run_course`): bench.py's keys and the port's,
+    at least one attempt, finite values."""
+    from lego_loam_torch import bench
+
+    line = bench.bench_line(straight, flagship, card)
+    log(f"bench: line from the straight course and the lap: {json.dumps(line)}")
+    nums = [v for v in line.values() if isinstance(v, (int, float))]
+    if not (tuple(line) == bench.LINE_KEYS and line["loop_attempts"] >= 1 and np.isfinite(nums).all()):
+        raise AssertionError(f"bench: line {line}")
+    return line
+
+
 def lap_course(cfg):
     """bench.py's campus course with laps of LAP_STRAIGHT/LAP_TURN frames a
     side, cut after N_LAP frames: true poses and positions and swept renders
@@ -884,15 +1049,29 @@ def drive_lap(cfg, gt, scans, name, drive):
 
 def run_lap(cfg, gt, scans, ckpt):
     """The flagship's loop-closing path: `vlp16()` with loop closure on at
-    20,480 keyframes, through `warmup_loop_closure` and
-    `run_chunked(chunk=32)`, with `drive_lap`'s checks; then K2 on one
-    real loop_icp call's clouds, the attempt's and the solve's times, and
+    20,480 keyframes, through `warmup_loop_closure` and the bench's timed
+    loop (`bench.run_course` over chunks of 32, one warm, then
+    `finalize`), with `drive_lap`'s checks; then K2 on one real loop_icp
+    call's clouds, the attempt's and the solve's times, and
     `reduced_solve` on the card against the CPU. The final state is saved
-    to `ckpt` (`checkpoint.save`) for phase 7h."""
+    to `ckpt` (`checkpoint.save`) for phase 7h. Returns the summary with
+    the bench's record of the drive (`bench.course_record`) under
+    "bench", and the loop_icp clouds."""
+    from lego_loam_torch import bench
+
     log(f"lap: {N_LAP} frames of campus laps of {4 * (LAP_STRAIGHT + LAP_TURN)} (straight {LAP_STRAIGHT}, turn "
         f"{LAP_TURN}): one lap and {N_LAP - 4 * (LAP_STRAIGHT + LAP_TURN)} revisit frames, cut from bench.py's "
         f"1,376 frames of 700-frame laps (straight 150, turn 25)")
-    pipe, summary = drive_lap(cfg, gt, scans, "lap", lambda p: p.run_chunked(scans, chunk=LAP_CHUNK))
+    timed = {}
+
+    def drive(p):
+        prepped = [p._prep_many(scans[s:s + LAP_CHUNK]) for s in range(0, len(scans), LAP_CHUNK)]
+        timed["sps"] = bench.run_course(p, prepped, 1, LAP_CHUNK)
+        return p._result()
+
+    pipe, summary = drive_lap(cfg, gt, scans, "lap", drive)
+    summary["bench"] = bench.course_record(pipe, timed["sps"], gt)
+    log(f"lap: bench.run_course {timed['sps']:.3f} scans/s over {N_LAP - LAP_CHUNK} timed frames")
 
     # One more attempt at the last closure's keyframes on the final store:
     # K2's clouds at loop_icp against its twin, then the attempt's time.
@@ -1060,7 +1239,8 @@ def run_cli(truth, seq, bag, d):
                       "mapping_ms_median": float(np.median(mapt)), "launches": launches, "launches_by_site": sites}
     total = {k: runs["kitti"]["launches"].get(k, 0) + runs["rosbag"]["launches"].get(k, 0)
              for k in ("cc_label_prop", "knn_top5")}
-    return {"runs": runs, "launches": total}
+    sites = collections.Counter(runs["kitti"]["launches_by_site"]) + collections.Counter(runs["rosbag"]["launches_by_site"])
+    return {"runs": runs, "launches": total, "launches_by_site": dict(sites)}
 
 
 def run_checkpoint(cfg, scans, d):
@@ -1329,7 +1509,7 @@ def dist_phase(d) -> int:
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
-    from lego_loam_torch import checkpoint, launch
+    from lego_loam_torch import checkpoint, launch, weak_scaling
     from lego_loam_torch import cuda as kcuda
     from lego_loam_torch import distributed as D
     from lego_loam_torch.ops.hashgrid import build_grid, query_knn
@@ -1450,6 +1630,16 @@ def dist_phase(d) -> int:
     if not (recall > 0.98 and int(gate.sum()) > 100 and not masked):
         raise AssertionError(f"dist: the voxel-hash k-NN recall {recall:.4f} over {int(gate.sum())} queries")
     torch.save(tuple(x.cpu() for x in (q, tgt, m)), os.path.join(d, "sharded_clouds.pt"))
+
+    # 6. python -m lego_loam_torch.weak_scaling's solve at this world size
+    ws, (ws_R, ws_t) = weak_scaling.measure(dev)
+    ws_move = float(np.abs(ws_t - weak_scaling.chain_problem(ws["poses"], weak_scaling.N_LOOPS)[1]).max())
+    log(f"dist: weak_scaling over {world} rank: {ws['poses']} poses, {ws['factors']} factors, solve "
+        f"{ws['solve_ms']:.3f} ms, {ws['factors_per_ms']:.2f} factors/ms, collective bytes "
+        f"{ws['collective_bytes_per_solve']} ({ws['backend']}); poses moved up to {ws_move:.3f} m")
+    if not (np.isfinite(ws_t).all() and np.isfinite(ws_R).all() and ws["solve_ms"] > 0
+            and sorted(ws["collective_bytes_per_solve"]) == ["all_gather", "all_reduce", "broadcast"]):
+        raise AssertionError(f"dist: weak_scaling {ws}")
     del pipe, bs, loop
     gc.collect()
     torch.cuda.empty_cache()
@@ -1459,7 +1649,14 @@ def dist_phase(d) -> int:
     dist.destroy_process_group()
     D.init_distributed(f"127.0.0.1:{launch._free_port()}", 1, 0, device="cpu")
     cpu_R, cpu_t = D.sharded_map_gn_step(D.make_mesh(), cfg)(*(x.cpu() for x in margs))
+    ws_cpu, (_, ws_cpu_t) = weak_scaling.measure("cpu")
     dist.destroy_process_group()
+    ws_dt = float(np.abs(ws_t - ws_cpu_t).max())
+    log(f"dist: weak_scaling solve on the card against gloo on the CPU: {ws_dt:.2e} m apart (CPU "
+        f"{ws_cpu['solve_ms']:.3f} ms)")
+    if not ws_dt <= 2e-2:
+        raise AssertionError(f"dist: the weak-scaling solve on the card is {ws_dt:.3g} m from the CPU's")
+    ws.update(device=card_line(), card_vs_cpu_m=ws_dt, cpu_solve_ms=ws_cpu["solve_ms"])
     st_dt, st_dR = float((st_a[1].cpu() - cpu_t).abs().max()), rot_diff(st_a[0].cpu(), cpu_R)
     st_move = float((st_a[1] - call["t"]).norm())
     log(f"dist: sharded_map_gn_step {st_ms:.3f} ms on the card (moved the pose {st_move:.4f} m); card vs CPU "
@@ -1475,6 +1672,7 @@ def dist_phase(d) -> int:
             "schur_vs_reduced_m": sc_dt, "schur_dense64_vs_reduced_m": sd_dt, "map_gn_step_ms": st_ms,
             "map_gn_card_vs_cpu_m": st_dt, "map_gn_card_vs_cpu_rad": st_dR, "k2_max_abs_err": k2_err,
             "reruns_bit_identical": reruns, "hashgrid_ms": grid_ms, "hashgrid_recall": recall, "shard": shard,
+            "weak_scaling": ws,
         }, fh)
     return 0
 
@@ -1492,7 +1690,7 @@ def shard_phase(d, mesh) -> dict:
        this rank printed;
     2. the lap's saved state (phase 7's `checkpoint.save`) loaded into a
        pipeline whose store lies in row blocks, which runs the next N_CONT
-       scans of the lap course (frames 448-511, revisiting) through
+       scans of the lap course (frames 448-479, revisiting) through
        `run_chunked(chunk=32)`: at least one loop attempt on the sharded
        store, the final keyframe poses bit-identical to the parent's
        unsharded graphed continuation (`run_lap_continuation`), K2
@@ -1503,7 +1701,7 @@ def shard_phase(d, mesh) -> dict:
 
     The launches of parts 1 and 2's sharded runs, each counted alone, make
     the `shard` path. Returns the results; raises on a failed check."""
-    from lego_loam_torch import checkpoint, launch
+    from lego_loam_torch import checkpoint, launch, weak_scaling
     from lego_loam_torch import cuda as kcuda
     from lego_loam_torch import distributed as D
     from lego_loam_torch.config import vlp16
@@ -1547,7 +1745,7 @@ def shard_phase(d, mesh) -> dict:
     del pipe, out
     gc.collect()
 
-    # 2. the lap's state, continued over the revisit frames 448-511
+    # 2. the lap's state, continued over the revisit frames 448-479
     lcfg = lap_config()
     cont = list(np.load(os.path.join(d, "lap_cont_scans.npy")))  # rendered with the lap (`lap_course`)
     ckpt = os.path.join(d, "lap.npz")
@@ -1618,12 +1816,13 @@ def run_dist(d):
 
 
 def run_campus(d):
-    """Phase 7j: `python -m lego_loam_torch.campus_run` at its defaults (the
-    3-lap, 2,080-frame campus course of tools/campus_run.py, loop closure
-    on, 20,480 keyframes) in a child process on the card, its record and
-    products under `d`, its scan cache in `d`. Checks: exit 0, `failed`
-    false and `finite` true, CAMPUS_FRAMES frames, at least 2 closures (two
-    revisit laps), the corrected keyframe ATE < 0.5 m and at most the map
+    """Phase 7j: `python -m lego_loam_torch.campus_run --laps 2
+    --render-variants 2` (the campus course of tools/campus_run.py cut to 2
+    laps: 1,376 frames, loop closure on, 20,480 keyframes) in a child
+    process on the card, its
+    record and products under `d`, its scan cache in `d`. Checks: exit 0,
+    `failed` false and `finite` true, CAMPUS_FRAMES frames, at least 2
+    closures (its revisit lap), the corrected keyframe ATE < 0.5 m and at most the map
     ATE + 0.05 m, the record's keys those of the reference's
     CAMPUS_RUN.json plus `device`, and K1 and K2 (at the four per-scan
     sites and at loop_icp) launched over the drive (launches.json). The
@@ -1632,7 +1831,8 @@ def run_campus(d):
     out, rec_path = os.path.join(d, "out_campus"), os.path.join(d, "campus.json")
     env = dict(os.environ, LEGO_SCAN_CACHE=os.path.join(d, "scan_cache"))
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "lego_loam_torch.campus_run", "--out", out, "--json-out", rec_path],
+    r = subprocess.run([sys.executable, "-m", "lego_loam_torch.campus_run", "--laps", str(CAMPUS_LAPS),
+                        "--render-variants", str(CAMPUS_VARIANTS), "--out", out, "--json-out", rec_path],
                        cwd=ROOT, capture_output=True, text=True, timeout=900, env=env)
     wall = time.perf_counter() - t0
     for line in r.stdout.splitlines():
@@ -1672,6 +1872,46 @@ def run_campus(d):
     return {"record": rec, "process_seconds": wall, "launches": launches, "launches_by_site": sites,
             "graphs": counts["graph_stats"]}
 
+def run_diag(d):
+    """Phase 7k: `python -m lego_loam_torch.diag_campus --frames N_DIAG` in
+    this process (`diag_campus.run`, its scan cache in `d`; the launch
+    counts set to 0 just before its drive), its table and segment lines
+    printed: finite odometry and map positions at every frame, the
+    first straight, turn and second straight all reached, K1 and K2 at
+    the four per-scan sites launched, the steps replayed with no
+    recapture."""
+    from lego_loam_torch import diag_campus
+
+    args = diag_campus.parse_args(["--frames", str(N_DIAG)])
+    saved = os.environ.get("LEGO_SCAN_CACHE")
+    os.environ["LEGO_SCAN_CACHE"] = os.path.join(d, "scan_cache")
+    try:
+        res = diag_campus.run(args, log=lambda msg: log(f"  diag_campus: {msg}"))
+    finally:
+        if saved is None:
+            os.environ.pop("LEGO_SCAN_CACHE")
+        else:
+            os.environ["LEGO_SCAN_CACHE"] = saved
+    diag_campus.report(args, res, out=lambda line: log(f"  diag_campus: {line}"))
+    launches, sites, g = res["launches"], res["launches_by_site"], res["graph_stats"]
+    log(f"diag: {res['frames']} frames at {res['scans_per_sec']:.3f} scans/s (first use included); graphs {g}; "
+        f"launches {launches}, by site {sites}")
+    finite = bool(np.isfinite(res["odom"]).all() and np.isfinite(res["est"]).all())
+    if not (finite and res["odom"].shape == res["est"].shape == (N_DIAG, 3)
+            and list(res["segments"]) == ["straight1", "turn1", "straight2"]):
+        raise AssertionError(f"diag: finite {finite}, shapes {res['odom'].shape} {res['est'].shape}, segments "
+                             f"{res['segments']}")
+    if not (launches.get("cc_label_prop", 0) > 0 and all(sites.get(f"knn_top5@{k}", 0) > 0 for k in K2_SITES)):
+        raise AssertionError(f"diag: a kernel of the path was not launched: {launches} {sites}")
+    if not (g["replays"] > 0 and g["recaptures"] == 0):
+        raise AssertionError(f"diag: graphs {g}")
+    gt = res["gt"]
+    return {"frames": res["frames"], "scans_per_sec": res["scans_per_sec"], "segments": res["segments"],
+            "odom_err_end_m": float(np.linalg.norm(res["odom"][-1] - gt[-1])),
+            "map_err_end_m": float(np.linalg.norm(res["est"][-1] - gt[-1])), "graphs": g, "launches": launches,
+            "launches_by_site": sites}
+
+
 def profile_slice(cfg, scans, mode, **kw):
     """One frame step (`kw`: sync_free, graphs) in its steady state: a
     fresh pipeline over chunks of 4 of the slice's scans (staged before),
@@ -1687,6 +1927,7 @@ def profile_slice(cfg, scans, mode, **kw):
     from lego_loam_torch.pipeline import LegoLoamPipeline
 
     n, warm = 4, 2 if kw.get("graphs", True) else 1  # graphed: the prepass is captured at its second chunk
+    t_in = time.perf_counter()
     pipe = LegoLoamPipeline(cfg, seed=2, **kw)
     xs = [pipe.stage_chunk(pipe._prep_many(scans[s:s + n])) for s in range(0, (warm + 3) * n, n)]
     for x in xs[:warm]:
@@ -1698,14 +1939,18 @@ def profile_slice(cfg, scans, mode, **kw):
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
     _, syncs = count_syncs(lambda: pipe.process_chunk(xs[warm + 1]))
     torch.cuda.synchronize()
+    t_prof = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         pipe.process_chunk(xs[warm + 2])
         torch.cuda.synchronize()
+    t_trace = time.perf_counter()
     res = {"wall_ms_per_scan": wall_ms, "scans_per_s": 1e3 / wall_ms, "syncs_per_frame": syncs / n,
            "graphs": dict(pipe.graph_stats)}
     log(f"profile {mode}: {1e3 / wall_ms:.3f} scans/s in the steady state ({wall_ms:.2f} ms a scan), "
         f"{syncs / n:.2f} host synchronizations a frame, graphs {pipe.graph_stats}")
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    log(f"profile {mode}: {t_prof - t_in:.1f} s to the profiled chunk, {t_trace - t_prof:.1f} s in it (the trace "
+        f"collected), {time.perf_counter() - t_trace:.1f} s in key_averages")
     if not kernels:  # the profiler may be unable to trace the card; the kernel times do not need it
         log(f"profile {mode}: the profiler saw no device kernel; device time per scan not measured")
         return {**res, "device_ms_per_scan": None, "device_kernels_per_scan": None, "device_busy": None,
@@ -1729,7 +1974,7 @@ def run_lap_continuation(cfg, ckpt, cont, out):
     """The lap's saved state (frame N_LAP, `checkpoint.save` at the end of
     the lap) loaded into a fresh unsharded pipeline, graphed, and into one
     with `graphs=False`; each continued over the lap course's next N_CONT
-    scans (frames 448-511, revisiting) through `run_chunked(chunk=32)`.
+    scans (frames 448-479, revisiting) through `run_chunked(chunk=32)`.
     Needs at least one loop attempt in each, and final keyframe poses and
     times bit-identical: `checkpoint.load` and the applied graph solves
     write the state in place, where the captured steps read it. The
@@ -1819,6 +2064,8 @@ def main() -> int:
     np.savez(os.path.join(dd, "slice_poses.npz"), gt=gt, **slice_poses)
     summary["scan_run"] = run_per_scan(cfg, scans, gt)
     elapsed("5")
+    summary["ring"] = run_ring(cfg, scans, gt)
+    elapsed("5b")
     summary["profile"] = {mode: profile_slice(cfg, scans, mode, **kw) for mode, kw in (
         ("graphed", {}), ("eager", {"graphs": False}), ("host-branching", {"sync_free": False, "graphs": False}))}
     elapsed("8 (the steady state)")
@@ -1826,12 +2073,20 @@ def main() -> int:
     elapsed("6")
     summary["ablation"] = run_ablations(cfg, scans, gt, summary["profile"]["graphed"])
     elapsed("6b")
+    t0 = time.perf_counter()
+    bench_gt, bench_scans = bench_straight_scans(cfg)
+    log(f"bench: rendered the straight course's {len(bench_scans)} swept scans in {time.perf_counter() - t0:.1f} s")
+    summary["bench"] = run_bench_straight(bench_scans, bench_gt, dev)
+    summary["bench_ablate"] = run_bench_ablate(bench_scans, bench_gt, dev)
+    del bench_scans
+    elapsed("6c")
     lcfg = lap_config()
     t0 = time.perf_counter()
     lap_poses, lap_gt, lap_scans, cont_scans = lap_course(lcfg)
     log(f"lap: rendered {N_LAP + N_CONT} swept scans in {time.perf_counter() - t0:.1f} s")
     np.save(os.path.join(dd, "lap_cont_scans.npy"), np.stack(cont_scans))  # phase 7i's continuation
     summary["lap"], icp_clouds = run_lap(lcfg, lap_gt, lap_scans, os.path.join(dd, "lap.npz"))
+    summary["bench_line"] = check_bench_line(summary["bench"], summary["lap"]["bench"], card)
     elapsed("7")
     summary["lap_continuation"] = run_lap_continuation(lcfg, os.path.join(dd, "lap.npz"), cont_scans,
                                                        os.path.join(dd, "lap_cont_kf.npz"))
@@ -1868,6 +2123,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_campus_") as d:
         summary["campus"] = run_campus(d)
     elapsed("7j")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_diag_") as d:
+        summary["diag"] = run_diag(d)
+    elapsed("7k")
 
     # K1 times at the main path's shape: one launch per chunk of CHUNK scans
     k1_rows = []
@@ -1918,6 +2176,8 @@ def main() -> int:
                           "launches_in": path, "launches_imu_lap": summary["imu_lap"]["launches_by_site"].get(site, 0),
                           "launches_ablation": summary["ablation"]["launches_by_site"].get(site, 0),
                           "launches_campus": summary["campus"]["launches_by_site"].get(site, 0),
+                          "launches_by_path": {p: (summary[p] if p != "slice" else summary)["launches_by_site"].get(
+                              site, 0) for p in PATHS},
                           "max_abs_err": err})
         log(f"K2 {name} Q={Q} T={T} ({tm.shape[0]} unmasked): {ms:.4f} ms a call, kernel alone {dev_ms:.4f} ms, "
             f"twin {plain:.4f} ms, cdist+topk {lib:.4f} ms, bound {bound:.5f} ms ({bound_by}), "

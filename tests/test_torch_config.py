@@ -2,6 +2,7 @@
 
 import ast
 import dataclasses
+import os
 import pathlib
 import subprocess
 import sys
@@ -81,8 +82,19 @@ def test_port_never_imports_jax():
         "import lego_loam_torch.run, lego_loam_torch.checkpoint, lego_loam_torch.relocalize, "
         "lego_loam_torch.native, lego_loam_torch.eskf, lego_loam_torch.io.kitti, lego_loam_torch.io.rosbag2, "
         "lego_loam_torch.io.eskf_data, lego_loam_torch.distributed, lego_loam_torch.launch, "
-        "lego_loam_torch.ops.hashgrid; sys.path.insert(0, 'tests'); import _torch_ranks; "
+        "lego_loam_torch.ops.hashgrid, lego_loam_torch.campus_run, lego_loam_torch.bench, "
+        "lego_loam_torch.weak_scaling, lego_loam_torch.diag_campus; sys.path.insert(0, 'tests'); import _torch_ranks; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'lego_loam_tpu')]; "
         "assert not bad, bad"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
+
+
+@pytest.mark.parametrize("program", ["bench", "weak_scaling", "diag_campus"])
+def test_programs_refuse_without_a_gpu(program):
+    """Without a visible GPU and without --device cpu, each program exits 2
+    with a message naming the flag, as run.py does."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "-m", f"lego_loam_torch.{program}"], cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 2 and "--device cpu" in r.stderr and not r.stdout

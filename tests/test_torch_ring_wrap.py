@@ -1,0 +1,108 @@
+"""The keyframe ring past capacity, the port's counterpart of
+tests/test_backend.py::test_keyframe_ring_saturation: K = 8 keyframe slots
+and n = 3K + 2 frames on the reference's small test config
+(tests/test_backend.py::small_cfg: CPU-sized caps, rigid renders) with the
+submap held to 4,096 corner and 8,192 surf slots over the 6 nearest
+keyframes, rendered as that test renders them (a 0.25 m, 1.5 deg a frame
+drive, 5 mm noise, seed 3 + i), through the per-scan `run`.
+
+Checks, as the reference's test: every keyframe appended (n_kf == n, not
+clamped); the K resident slots in time order, the newest at (n - 1) x the
+scan period; map ATE < 0.15 m after the ring wrapped three times; and a
+chain-only `_optimize_graph` over the wrapped window moves the newest pose
+< 0.05 m. Besides: the pose graph's chain and `keyframe_trajectory`
+follow append order across the wrap, and the resident slots of a store
+at and past capacity equal the reference's. A drive of the first wrap
+(n = K + 2) against the reference's is left out: the reference's drive
+alone takes ~87 s here, the whole of this file's budget."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import lego_loam_tpu.backend as ref_backend
+from lego_loam_torch.convert import backend_state_from_reference, config_from_reference
+from lego_loam_torch.io.synthetic import render_scan, straight_trajectory
+from lego_loam_torch.pipeline import LegoLoamPipeline
+from lego_loam_torch.utils.metrics import ate_rmse
+
+from test_backend import small_cfg
+
+K = 8
+
+
+def ring_cfg():
+    """The reference's test config of the ring: small_cfg at K slots."""
+    cfg = small_cfg()
+    return dataclasses.replace(cfg, mapping=dataclasses.replace(
+        cfg.mapping, max_keyframes=K, max_submap_corner=4096, max_submap_surf=8192,
+        surrounding_keyframe_search_num=6))
+
+
+def course(n, cfg):
+    poses = straight_trajectory(n, speed=0.25, yaw_rate=np.deg2rad(1.5))
+    return poses, [render_scan(R, t, cfg, noise=0.005, seed=3 + i) for i, (R, t) in enumerate(poses)]
+
+
+def resident_times(bstate):
+    slots = bstate.ordered_slots()
+    return slots, np.asarray(bstate.kf_time.cpu())[slots]
+
+
+@pytest.fixture(scope="module")
+def wrapped():
+    """The port over 3K + 2 frames (its own RANSAC draws), the map pose
+    before and after a chain-only graph solve."""
+    cfg = config_from_reference(ring_cfg())
+    n = 3 * K + 2
+    poses, scans = course(n, cfg)
+    pipe = LegoLoamPipeline(cfg, device="cpu")
+    out = pipe.run(scans)
+    t_before = pipe.bstate.t_map.clone().numpy()
+    pipe._optimize_graph()
+    return cfg, n, poses, pipe, out, t_before, pipe.bstate.t_map.numpy()
+
+
+def test_ring_wraps_three_times(wrapped):
+    cfg, n, poses, pipe, out, _, _ = wrapped
+    assert int(pipe.bstate.n_kf) == n  # total appended, not clamped
+    slots, times = resident_times(pipe.bstate)
+    assert len(slots) == K == pipe.bstate.capacity
+    assert np.all(np.diff(times) > 0), "the ring's resident window must be in time order"
+    assert times[-1] == pytest.approx((n - 1) * cfg.laser.scan_period)
+    gt = np.stack([t for _, t in poses])
+    assert ate_rmse(out["map_positions"], gt, align=False) < 0.15
+
+
+def test_chain_only_solve_keeps_the_newest_pose(wrapped):
+    *_, pipe, _, t_before, t_after = wrapped
+    assert not pipe.loop_factors
+    assert np.linalg.norm(t_after - t_before) < 0.05
+
+
+def test_wrapped_graph_and_keyframes_in_logical_order(wrapped):
+    """Across the wrap the pose graph's chain pairs consecutive resident
+    keyframes in append order, and `keyframe_trajectory` returns the
+    resident keyframes oldest to newest."""
+    *_, pipe, _, _, _ = wrapped
+    slots, times = resident_times(pipe.bstate)
+    factors, active, newest = pipe._graph_factors()
+    assert newest == slots[-1] and int(active.sum()) == K
+    chain = factors.mask[: K - 1].numpy()
+    assert chain.all()
+    assert np.array_equal(factors.i[: K - 1].numpy(), slots[:-1]) and np.array_equal(factors.j[: K - 1].numpy(), slots[1:])
+    _, kt, ktimes = pipe.keyframe_trajectory()
+    assert np.array_equal(ktimes, times) and np.array_equal(kt, pipe.bstate.kf_t.numpy()[slots])
+
+
+@pytest.mark.parametrize("n_kf", [0, 5, K, K + 2, 3 * K + 2])
+def test_ordered_slots_match_reference(n_kf):
+    """The resident slots, oldest to newest, of a store that has taken n_kf
+    keyframes, against the reference's."""
+    ref = ref_backend.init_backend_state(ring_cfg()).replace(n_kf=jnp.int32(n_kf))
+    ours = backend_state_from_reference(jax.device_get(ref), "cpu")
+    assert np.array_equal(ours.ordered_slots(), np.asarray(ref.ordered_slots()))
+    assert len(ours.ordered_slots()) == min(n_kf, K)
