@@ -41,7 +41,10 @@ flagship's `ate_map_m` (per-frame map poses) and `ate_corrected_kf_m`
 each a fresh pipeline over the straight course's first (BENCH_WARMUP_CHUNKS
 + 10) x BENCH_CHUNK scans (2 + 10 chunks of 32 at the defaults), timed as
 above; one line {variant: scans/s} as each finishes,
-then the dict of all seven.
+then the dict of all seven. The straight course leaves its world's room
+at frame ~133; `--ablate-course flagship` (the port's addition) runs the
+variants over the flagship course's first frames instead, which stay
+inside the campus world.
 """
 
 from __future__ import annotations
@@ -77,6 +80,8 @@ ABLATE_CHUNKS = 10  # timed chunks of each --ablate variant
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--ablate", action="store_true", help="time tools/ablate_bench.py's seven variants instead")
+    ap.add_argument("--ablate-course", default="straight", choices=["straight", "flagship"],
+                    help="--ablate over the straight course (tools/ablate_bench.py's) or the flagship's first frames")
     ap.add_argument("--laps", type=int, default=2, help="laps of the flagship course")
     ap.add_argument("--straight", type=int, default=150, help="frames of each straight side of a lap")
     ap.add_argument("--turn", type=int, default=25, help="frames of each corner turn of a lap")
@@ -213,15 +218,24 @@ def bench_line(straight: dict, flagship: dict, device: str) -> dict:
 
 
 def course_scans(args, cfg: LegoLoamConfig, pool=None):
-    """Both courses: ((straight poses, scans), (flagship poses, scans))."""
-    n_straight = (args.warm + args.chunks) * args.chunk
-    s_poses, jobs = straight_course(n_straight, cfg)
-    s_scans = render_course("bench_straight", {"n": n_straight, "v": 2}, jobs, pool)
-    if args.ablate:
-        return (s_poses, s_scans), None
+    """Both courses: ((straight poses, scans), (flagship poses, scans)).
+    With --ablate only the course it runs over (the other None): the
+    straight course whole (mode 1's cache), or the flagship's first
+    (warm + ABLATE_CHUNKS) x chunk frames."""
+    flagship = not args.ablate or args.ablate_course == "flagship"
+    straight = None
+    if not args.ablate or args.ablate_course == "straight":
+        n_straight = (args.warm + args.chunks) * args.chunk
+        s_poses, jobs = straight_course(n_straight, cfg)
+        straight = (s_poses, render_course("bench_straight", {"n": n_straight, "v": 2}, jobs, pool))
+    if not flagship:
+        return straight, None
     l_poses, jobs = flagship_course(args.laps, args.straight, args.turn, args.chunk, cfg)
+    if args.ablate:
+        n = (args.warm + ABLATE_CHUNKS) * args.chunk
+        l_poses, jobs = l_poses[:n], jobs[:n]
     params = {"n": len(l_poses), "straight": args.straight, "turn": args.turn, "laps": args.laps, "v": 2}
-    return (s_poses, s_scans), (l_poses, render_course("bench_lap", params, jobs, pool))
+    return straight, (l_poses, render_course("bench_lap", params, jobs, pool))
 
 
 def run(args, log=print):
@@ -286,8 +300,9 @@ def main(argv=None) -> int:
     if args.ablate:
         cfg = bench_config()
         with render_pool(RENDER_WORKERS) as pool:
-            (poses, scans), _ = course_scans(args, cfg, pool)
-        log(f"bench --ablate on {device_name(torch.device(args.device))}")
+            straight, flagship = course_scans(args, cfg, pool)
+        poses, scans = straight or flagship
+        log(f"bench --ablate over the {args.ablate_course} course on {device_name(torch.device(args.device))}")
         res = ablate(cfg, scans, truth(poses), args.chunk, args.warm, ABLATE_CHUNKS, args.device, out)
         out(json.dumps({name: r["scans_per_sec"] for name, r in res.items()}))
         return 0

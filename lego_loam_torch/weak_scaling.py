@@ -23,8 +23,9 @@ The reference reads its bytes from compiled HLO; the port's solver uses an
 it has a `psum`, so the two records differ by design.
 
 Writes --json-out (default WEAK_SCALING_torch.json): {"results": [...]}
-with tools/weak_scaling.py's keys plus `device` and `backend` for each
-world size. Results of the other backend already in the file are kept, so
+with tools/weak_scaling.py's keys plus `device` (the card's name and power
+limit; for gloo "cpu", the core count and the host's card) and `backend`
+for each world size. Results of the other backend already in the file are kept, so
 one file holds the CPU's gloo ranks and the card's NCCL rank.
 """
 
@@ -56,7 +57,6 @@ def parse_args(argv=None):
     ap.add_argument("--ranks", type=int, nargs="*", default=None,
                     help="world sizes (default: 1 on the card; 1, 2, 4 and, with 8 cores, 8 on the CPU)")
     ap.add_argument("--json-out", default="WEAK_SCALING_torch.json")
-    ap.add_argument("--poses-out", default=None, help="a directory for each world size's solved poses")
     ap.add_argument("--rank-out", default=None, help=argparse.SUPPRESS)  # set in the spawned ranks
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -230,25 +230,39 @@ def merge(path: str, results: list) -> dict:
     return {"results": sorted(keep + results, key=lambda r: (r["backend"], r["devices"]))}
 
 
+def host_name(device: str) -> str:
+    """The card's name and power limit (nvidia-smi), or for the CPU its
+    core count and, where the host has a card, that card's line."""
+    from .campus_run import device_name
+
+    if device == "cuda":
+        return device_name(torch.device("cuda"))
+    beside = f", host of {device_name(torch.device('cuda'))}" if torch.cuda.is_available() else ""
+    return f"cpu, {os.cpu_count()} cores{beside}"
+
+
+def run_worlds(ranks, device: str, out_dir: str) -> list:
+    """Each world size of `ranks` through `run_world`, its rank 0 writing
+    under out_dir/W; the records, each with its `device`, printed as they
+    come."""
+    name = host_name(device)
+    results = []
+    for W in ranks:
+        out = os.path.join(out_dir, str(W))
+        os.makedirs(out)
+        rec = run_world(W, device, out)
+        rec["device"] = name
+        results.append(rec)
+        print(json.dumps(rec), flush=True)
+    return results
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.rank_out:
         return rank_main(args)
-    from .campus_run import device_name
-
-    device = device_name(torch.device(args.device))
-    results = []
     with tempfile.TemporaryDirectory(prefix="weak_scaling_") as d:
-        for W in args.ranks:
-            out = os.path.join(d, str(W))
-            os.makedirs(out)
-            rec = run_world(W, args.device, out)
-            rec["device"] = device
-            results.append(rec)
-            print(json.dumps(rec), flush=True)
-            if args.poses_out:
-                os.makedirs(args.poses_out, exist_ok=True)
-                os.replace(os.path.join(out, "poses.npz"), os.path.join(args.poses_out, f"poses_{W}.npz"))
+        results = run_worlds(args.ranks, args.device, d)
     if len(results) > 1:
         ratio = results[1]["factors_per_ms"] / results[0]["factors_per_ms"]
         print(f"weak-scaling throughput ratio {results[1]['devices']}/{results[0]['devices']} ranks = {ratio:.2f}",

@@ -16,14 +16,18 @@ keyframes a side) and loop candidates older than 1.2 s; the port starts
 from the reference's states and draws the reference's RANSAC scores. Both
 are held to the slice's bounds as tests/test_torch_campus_run.py holds its
 records: the map ATE and the corrected keyframe ATE within 1.5 cm of the
-reference's, the odometry at every frame within 8 cm. Attempts and closures
-are counted after each package's `finalize()`. Measured: map ATE 0.1166
-against 0.1201 m, corrected keyframe ATE 0.1288 against 0.1372 m,
-odometry within 3.6 cm at every frame, 2 attempts and 2 closures each.
-The per-frame map poses differ by up to 1.35 cm before the first closure
-and 2.2 cm after it (both apply the solve at the same check, from ICP
-fitnesses 0.0728 and 0.0731 that differ in their float rounding), which
-is why the map is compared through its ATE."""
+reference's, the map at every frame up to the first accepted closure's
+keyframe within 1.5 cm, the odometry at every frame within 8 cm. Attempts
+and closures are counted after each package's `finalize()`. After the
+first closure the packages' ICP fitnesses differ in their float rounding
+(0.0728 against 0.0731, then 0.0113 against 0.0092), so the solve that
+both apply at the same check moves their poses a little apart: the map
+after that keyframe is held within 3 cm and the corrected keyframes within
+4 cm, each at every frame. Measured: map ATE 0.1166 against 0.1201 m,
+corrected keyframe ATE 0.1288 against 0.1372 m, the map within 1.35 cm up
+to the first closure's keyframe and 2.23 cm after it, the corrected
+keyframes within 3.23 cm, the odometry within 3.6 cm at every frame, 2
+attempts and 2 closures each."""
 
 import contextlib
 import dataclasses
@@ -50,6 +54,7 @@ from _torch_parity import loop_ref_cfg, ref_scores
 
 ROOT = Path(__file__).resolve().parent.parent
 MAP_TOL, ODOM_TOL = 1.5e-2, 8e-2
+MAP_AFTER_TOL, KF_TOL = 3e-2, 4e-2  # measured 2.23 and 3.23 cm, see the module's docstring
 COURSE = dict(laps=1, straight=1, turn=5, chunk=8)
 JAX_CACHE = ("jax_compilation_cache_dir", "jax_persistent_cache_min_entry_size_bytes",
              "jax_persistent_cache_min_compile_time_secs")
@@ -175,6 +180,30 @@ def test_ablation_variants_match_ablate_bench():
     assert len({json.dumps(dataclasses.asdict(c), sort_keys=True) for c in ours.values()}) == 7
 
 
+def test_ablate_courses(monkeypatch):
+    """--ablate renders only the course it runs over: the straight course
+    whole (mode 1's cache entry), or with --ablate-course flagship the
+    flagship's first (2 + 10) x 32 frames, its poses and render jobs those
+    of the whole flagship course (the same campus world)."""
+    calls = []
+    monkeypatch.setattr(bench, "render_course", lambda tag, params, jobs, pool=None: calls.append(
+        (tag, params, jobs)) or [None] * len(jobs))
+    cfg = bench.bench_config()
+    straight, lap = bench.course_scans(bench.parse_args(["--ablate", "--device", "cpu"]), cfg)
+    assert lap is None and len(straight[0]) == 704 and [c[:2] for c in calls] == [("bench_straight", {"n": 704, "v": 2})]
+    calls.clear()
+    straight, (poses, scans) = bench.course_scans(
+        bench.parse_args(["--ablate", "--ablate-course", "flagship", "--device", "cpu"]), cfg)
+    full_poses, full_jobs = bench.flagship_course(2, 150, 25, 32, cfg)
+    assert straight is None and len(poses) == len(scans) == 12 * 32
+    assert [c[:2] for c in calls] == [("bench_lap", {"n": 384, "straight": 150, "turn": 25, "laps": 2, "v": 2})]
+    for (R, t), (Rf, tf) in zip(poses, full_poses):
+        assert np.array_equal(R, Rf) and np.array_equal(t, tf)
+    for job, full in zip(calls[0][2], full_jobs):
+        assert all(np.array_equal(a, b) for pa, pb in zip(job[:2], full[:2]) for a, b in zip(pa, pb))
+        assert job[3:] == full[3:]
+
+
 def course_base():
     """`loop_ref_cfg` cut for the CPU as tests/test_torch_campus_run.py cuts
     it, candidates older than 1.2 s."""
@@ -224,6 +253,14 @@ def test_run_course_matches_reference(drives):
     kf = np.clip(np.rint(np.asarray(ref_ktimes) / 0.1).astype(int), 0, len(gt) - 1)
     assert abs(rec["ate_map_m"] - ate_rmse(ref_map, gt, align=False)) <= MAP_TOL
     assert abs(rec["ate_corrected_kf_m"] - ate_rmse(np.asarray(ref_kt), gt[kf], align=False)) <= MAP_TOL
+    # frame by frame: the map up to the first accepted closure's keyframe
+    # within the slice's bound, after it and the corrected keyframes within
+    # the bounds of the two closures' float rounding
+    first = kf[next(d["n_kf"] for d in ref_pipe.loop_diag if d.get("accepted")) - 1]
+    map_err = np.abs(np.asarray(pipe.trajectory["positions"]) - ref_map).max(axis=1)
+    assert first > 0 and map_err[: first + 1].max() <= MAP_TOL and map_err.max() <= MAP_AFTER_TOL
+    _, kt, _ = pipe.keyframe_trajectory()
+    assert np.abs(kt - np.asarray(ref_kt)).max() <= KF_TOL
     assert np.abs(pipe.odom_positions - np.asarray(ref_pipe.odom_positions)).max() <= ODOM_TOL
     assert rec["loop_attempts"] == bench.loop_attempts(ref_pipe) >= 1
     assert rec["loop_closures"] == len(ref_pipe.loop_factors) >= 1

@@ -10,9 +10,11 @@ submap caps (1,024 corner and 2,048 surf slots, 32 keyframes; both
 packages' `vlp16` patched); the port draws the reference's RANSAC scores.
 Each row's frame and segment are equal, its odometry error within 8 cm and
 its map error within 1.5 cm of the reference's (the slice's bounds), and
-the step-error lines name the same segments with means within 8 cm.
-Measured: frame 8's odometry error 0.388 against 0.390 m, map error 0.333
-against 0.341 m; the three step-error means within 0.29 cm."""
+the step-error lines name the same segments with means and maxima within
+1 cm. Measured: frame 8's odometry error 0.388 against 0.390 m, map error
+0.333 against 0.341 m; the step-error means (4.52, 13.33 and 12.09 cm
+against 4.56, 13.39 and 12.38) within 0.29 cm, the maxima within 0.46
+cm."""
 
 import dataclasses
 import importlib.util
@@ -35,6 +37,8 @@ from lego_loam_torch.pipeline import LegoLoamPipeline
 from _torch_parity import ref_scores
 
 ROOT = Path(__file__).resolve().parent.parent
+# step errors are a few cm and the packages' means differ by ~0.3 cm
+STEP_TOL_CM = 1.0
 COURSE = ["--frames", "16", "--straight", "5", "--turn", "4", "--chunk", "8"]
 JAX_CACHE = ("jax_compilation_cache_dir", "jax_persistent_cache_min_entry_size_bytes",
              "jax_persistent_cache_min_compile_time_secs")
@@ -174,6 +178,6 @@ def test_table_and_segments_match_reference(outputs):
         assert np.isfinite([float(x) for x in b[2:6]]).all()
     rs, os_ = steps(ref), steps(ours)
     assert list(rs) == list(os_) == ["straight1", "turn1", "straight2"]
-    for k in rs:
-        assert abs(rs[k][0] - os_[k][0]) <= 8.0
+    for k in rs:  # mean and max step error, printed in cm
+        assert abs(rs[k][0] - os_[k][0]) <= STEP_TOL_CM and abs(rs[k][1] - os_[k][1]) <= STEP_TOL_CM, k
     assert "scans/s (incl compile)" in ours and any(r.startswith("frame  seg") for r in ours.splitlines())

@@ -68,13 +68,13 @@ def test_chain_problem_bit_equal(tool, N):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The program at RANKS gloo ranks, its record and each world size's
-    solution written under a temporary directory."""
+    """The program's world sizes RANKS over gloo (`run_worlds`, each rank 0
+    writing its record and solution under tmp/W), merged into a record as
+    its main merges them."""
     tmp = tmp_path_factory.mktemp("weak")
-    assert weak_scaling.main(["--device", "cpu", "--ranks", *map(str, RANKS), "--json-out", str(tmp / "ws.json"),
-                              "--poses-out", str(tmp)]) == 0
-    with open(tmp / "ws.json") as f:
-        return json.load(f), {W: dict(np.load(tmp / f"poses_{W}.npz")) for W in RANKS}
+    results = weak_scaling.run_worlds(RANKS, "cpu", str(tmp))
+    return weak_scaling.merge(str(tmp / "ws.json"), results), {W: dict(np.load(tmp / str(W) / "poses.npz"))
+                                                              for W in RANKS}
 
 
 def test_record_keys_and_collective_bytes(runs):
@@ -91,7 +91,8 @@ def test_record_keys_and_collective_bytes(runs):
     for r in rec["results"]:
         W = r["devices"]
         assert set(r) == keys | {"device", "backend"}
-        assert (r["device"], r["backend"], r["poses"], r["factors"]) == ("cpu", "gloo", 2048 * W, 2048 * W - 1 + 16)
+        assert (r["backend"], r["poses"], r["factors"]) == ("gloo", 2048 * W, 2048 * W - 1 + 16)
+        assert r["device"] == weak_scaling.host_name("cpu") and r["device"].startswith(f"cpu, {os.cpu_count()} cores")
         assert r["solve_ms"] > 0 and r["factors_per_ms"] == pytest.approx(r["factors"] / r["solve_ms"])
         assert r["collective_bytes_per_solve"] == {
             "all_gather": 4 * (12 + 24 * 128 // W), "all_reduce": 4 * 24 * 16, "broadcast": 4 * 12 * 128}
