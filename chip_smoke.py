@@ -147,7 +147,8 @@ Phases, each printing a progress line:
      process on the card: exit 0,
      `failed` false, `finite` true, 1,376 frames, at least 2 closures, the
      corrected keyframe ATE < 0.5 m and at most the map ATE + 0.05 m, the
-     record's keys CAMPUS_RUN.json's plus `device`, K1 and K2 (also at
+     record's keys CAMPUS_RUN.json's plus `device`, the peak device memory
+     and the store probes, K1 and K2 (also at
      loop_icp) launched over the drive; the record printed beside the
      reference's CAMPUS_RUN.json accuracy, which gates nothing;
   7k. `python -m lego_loam_torch.diag_campus --frames 336` in this process
@@ -155,9 +156,17 @@ Phases, each printing a progress line:
      of 16, loop closure off): its table and step-error lines printed,
      finite positions, all three segments reached, K1 and K2 launched,
      no recapture;
+  7l. the Stevens-scale store without its drive: the flagship
+     configuration with 256 loop factors over 20,000 keyframes of a
+     drifted 8-lap chain (`store_chain`, 196 true loop factors, 28 a
+     revisiting lap), the pipeline's pose-graph solve (`_dispatch_solve`)
+     on the card under `torch.cuda.set_sync_debug_mode("error")` against
+     the same solve on the CPU (positions within 2e-2 m, both accepted,
+     nearer the truth than the chain), one reduced solve timed;
   8. the frame step in its steady state, graphed, eager (`graphs=False`)
      and host-branching (`sync_free=False`): after warm chunks of 4 (two
-     graphed, for the captures; one otherwise), one chunk timed, one under `set_sync_debug_mode("warn")` (host
+     graphed, for the captures; eager: one chunk of 2, not 4, since phase 7l), one
+     chunk timed, one under `set_sync_debug_mode("warn")` (host
      synchronizations a frame) and one under torch.profiler (device time
      and device kernels per scan, the device's busy share, the costliest
      kernels; "not measured" where the profiler cannot trace the card);
@@ -234,6 +243,10 @@ LAP_STRAIGHT, LAP_TURN, N_LAP, LAP_CHUNK = 70, 15, 448, 32
 # phases 7 and 7i: the lap's frames 448-479, continued from its saved state
 # (448-511 until the script grew by phases 5b, 6c and 7k)
 N_CONT = 32
+# phase 7l: a full keyframe store at the Stevens-scale run's size (8 laps of
+# 2,500 keyframes in 20,480 slots) with more loop factors than the default
+# max_loop_factors of 128, each revisiting lap closing on the lap before
+STORE_KF, STORE_LAPS, STORE_LOOPS_A_LAP, STORE_LOOP_CAP = 20000, 8, 28, 256
 
 
 def log(msg):
@@ -1828,7 +1841,8 @@ def run_campus(d):
     `failed` false and `finite` true, CAMPUS_FRAMES frames, at least 2
     closures (its revisit lap), the corrected keyframe ATE < 0.5 m and at most the map
     ATE + 0.05 m, the record's keys those of the reference's
-    CAMPUS_RUN.json plus `device`, and K1 and K2 (at the four per-scan
+    CAMPUS_RUN.json plus `device`, `peak_device_memory_gib` and
+    `latency_by_keyframes`, and K1 and K2 (at the four per-scan
     sites and at loop_icp) launched over the drive (launches.json). The
     record is printed beside the reference's accuracy fields, which gate
     nothing."""
@@ -1856,14 +1870,16 @@ def run_campus(d):
         f"closures; ATE map {rec['ate_map_m']:.4f} m, corrected keyframes {rec['ate_corrected_kf_m']:.4f} m, odometry "
         f"{rec['ate_odom_only_m']:.4f} m; RPE/100 m map {rec['rpe_100m_map']:.4f} m, odometry "
         f"{rec['rpe_100m_odom']:.4f} m; solve {rec['loop_solve_ms']:.3f} ms, attempt {rec['loop_attempt_ms']:.3f} ms "
-        f"(CUDA events); {rec['device']}; graphs {counts['graph_stats']}")
+        f"(CUDA events); peak device memory {rec['peak_device_memory_gib']:.3f} GiB; {rec['device']}; "
+        f"graphs {counts['graph_stats']}")
     acc = ("keyframes_total", "loop_closures", "ate_map_m", "ate_corrected_kf_m", "ate_odom_only_m", "rpe_100m_map",
            "rpe_100m_odom")
     log("campus: the reference's CAMPUS_RUN.json (the JAX package on a TPU; accuracy only, gates nothing): "
         + ", ".join(f"{k} {ref[k]}" for k in acc))
     log(f"campus: launches {launches}, by site {sites}")
-    if set(rec) != set(ref) | {"device"}:
-        raise AssertionError(f"campus: record keys {sorted(rec)} are not CAMPUS_RUN.json's plus device")
+    if set(rec) != set(ref) | {"device", "peak_device_memory_gib", "latency_by_keyframes"}:
+        raise AssertionError(f"campus: record keys {sorted(rec)} are not CAMPUS_RUN.json's plus device, "
+                             f"peak_device_memory_gib and latency_by_keyframes")
     if rec["failed"] or not rec["finite"] or rec["frames"] != CAMPUS_FRAMES or rec["loop_closures"] < 2:
         raise AssertionError(f"campus: failed {rec['failed']}, finite {rec['finite']}, frames {rec['frames']}, "
                              f"closures {rec['loop_closures']}")
@@ -1875,6 +1891,126 @@ def run_campus(d):
         raise AssertionError(f"campus: a kernel of the path was not launched: {launches} {sites}")
     return {"record": rec, "process_seconds": wall, "launches": launches, "launches_by_site": sites,
             "graphs": counts["graph_stats"]}
+
+def store_chain(n, laps, loops_a_lap, yaw_bias_deg=2.5e-4, seed=0):
+    """A chain of `weak_scaling.chain_problem`'s kind at the Stevens-scale
+    run's size: n poses around `laps` laps of a circle of 300 m (0.12 m a
+    pose at n = 20,000), the true odometry steps, the estimate integrated
+    from them with a yaw bias a step, and `loops_a_lap` true loop factors
+    on every revisiting lap, each between a pose and the same phase of the
+    lap before (ids drawn from the seed). The default bias puts the store
+    2.41 m (ATE) from the truth, at most 4.16 m: the Stevens-scale run's
+    store holds map poses 2.27 m off (its map ATE), not the odometry's
+    17.36 m. (A bias of 1e-3 deg, 9.58 m off, asks anchor moves of 16.5 m,
+    more than three GN steps under the 5 m trust region make; that solve
+    ends 6.7 cm apart on the card and the CPU: ROADMAP §3.) Returns (truth t, R_est, t_est,
+    rel_R, rel_t, loops [(i, j, R, t)]) as numpy float32."""
+    def rz(a):
+        c, s = np.cos(a), np.sin(a)
+        out = np.zeros(a.shape + (3, 3), np.float32)
+        out[..., 0, 0], out[..., 0, 1], out[..., 1, 0], out[..., 1, 1], out[..., 2, 2] = c, -s, s, c, 1.0
+        return out
+
+    rs = np.random.RandomState(seed)
+    lap = n // laps
+    yaw = (2 * np.pi * np.arange(n) / lap).astype(np.float32)
+    radius = 0.12 * lap / (2 * np.pi)
+    R = rz(yaw)
+    t = np.stack([np.sin(yaw) * radius, (1 - np.cos(yaw)) * radius, 0 * yaw], axis=1).astype(np.float32)
+    relR = np.tile(np.eye(3, dtype=np.float32), (n, 1, 1))
+    relt = np.zeros((n, 3), np.float32)
+    relR[1:] = np.einsum("nab,nac->nbc", R[:-1], R[1:])
+    relt[1:] = np.einsum("nab,na->nb", R[:-1], t[1:] - t[:-1])
+    bias = rz(np.full((), np.deg2rad(yaw_bias_deg), np.float32))
+    Re, te = np.zeros_like(R), np.zeros_like(t)
+    Re[0], te[0] = R[0], t[0]
+    for k in range(1, n):
+        Re[k] = Re[k - 1] @ relR[k] @ bias
+        te[k] = Re[k - 1] @ relt[k] + te[k - 1]
+    loops = []
+    for L in range(1, laps):
+        for j in np.sort(rs.choice(lap, loops_a_lap, replace=False)) + L * lap:
+            i = j - lap
+            loops.append((int(i), int(j), R[i].T @ R[j], R[i].T @ (t[j] - t[i])))
+    return t, Re, te, relR, relt, loops
+
+
+def full_store_pipeline(cfg, chain, device):
+    """A loop-closing pipeline on `device` whose keyframe store holds the
+    chain's estimate and odometry steps (slot = id: no ring wrap) and
+    whose loop factors are the chain's, through the pipeline's own
+    `_sync_loop_buf` (information from a fitness of 0.05)."""
+    from lego_loam_torch.pipeline import LegoLoamPipeline, LoopFactor
+
+    _, Re, te, relR, relt, loops = chain
+    pipe = LegoLoamPipeline(cfg, device=device)
+    bs = pipe.bstate
+    n = len(te)
+    for leaf, a in ((bs.kf_R, Re), (bs.kf_t, te), (bs.kf_rel_R, relR), (bs.kf_rel_t, relt)):
+        leaf[:n].copy_(torch.from_numpy(a))
+    bs.n_kf.fill_(n)
+    pipe.loop_factors = [LoopFactor(i=i, j=j, R=R, t=t, fitness=0.05) for i, j, R, t in loops]
+    pipe._sync_loop_buf()
+    return pipe
+
+
+def run_full_store(card):
+    """Phase 7l: the Stevens-scale store without the 20-minute drive. The
+    flagship configuration with max_loop_factors STORE_LOOP_CAP over a
+    store of STORE_KF keyframes (`store_chain`: STORE_LAPS laps, more than
+    128 loop factors); the pipeline's pose-graph solve (`_dispatch_solve`:
+    `reduced_solve` and the in-place writes of the store and the map pose)
+    on the card under `torch.cuda.set_sync_debug_mode("error")`, so that
+    any read inside it raises and names its line; the same solve on the
+    CPU; the two stores' positions within 2e-2 m of each other (phase 7h's
+    bound for a reduced solve), both solves accepted by their cost gate and
+    nearer the truth than the drifted chain. The solve timed with CUDA
+    events (a pure `reduced_solve` over the store, before the applied one),
+    printed beside the card's name and power limit."""
+    from lego_loam_torch.posegraph import reduced_solve
+
+    cfg = lap_config()
+    cfg = dataclasses.replace(cfg, mapping=dataclasses.replace(cfg.mapping, max_loop_factors=STORE_LOOP_CAP))
+    t0 = time.perf_counter()
+    chain = store_chain(STORE_KF, STORE_LAPS, STORE_LOOPS_A_LAP)
+    truth = chain[0]
+    n_loops = len(chain[-1])
+    gc.collect()
+    torch.cuda.empty_cache()
+    gpu = full_store_pipeline(cfg, chain, "cuda")
+    torch.cuda.synchronize()
+    log(f"store: {STORE_KF} keyframes over {STORE_LAPS} laps in {gpu.bstate.capacity} slots, {n_loops} loop factors "
+        f"(cap {STORE_LOOP_CAP}), built in {time.perf_counter() - t0:.2f} s")
+    bs = gpu.bstate
+    solve_ms = time_ms(lambda: reduced_solve(bs.kf_R, bs.kf_t, bs.kf_rel_R, bs.kf_rel_t, bs.n_kf, gpu._loop_buf, cfg),
+                       reps=5, warmup=1)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gpu._dispatch_solve(None)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    g_ok, g_c0, g_c1, g_moved = gpu._solve_pending[0].tolist()
+    gpu._pickup_solve()
+    t0 = time.perf_counter()
+    cpu = full_store_pipeline(cfg, chain, "cpu")
+    cpu._dispatch_solve(None)
+    c_ok, c_c0, c_c1, _ = cpu._solve_pending[0].tolist()
+    cpu_s = time.perf_counter() - t0
+    g_t = gpu.bstate.kf_t[:STORE_KF].cpu().numpy()
+    c_t = cpu.bstate.kf_t[:STORE_KF].numpy()
+    diff = float(np.linalg.norm(g_t - c_t, axis=1).max())
+    ate0, ate_g = ate(chain[2], truth), ate(g_t, truth)
+    log(f"store: the pipeline's solve on the card under set_sync_debug_mode('error'): accepted {g_ok > 0.5}, cost "
+        f"{g_c0:.6g} -> {g_c1:.6g}, largest anchor move {g_moved:.3f} m; on the CPU: accepted {c_ok > 0.5}, cost "
+        f"{c_c0:.6g} -> {c_c1:.6g} ({cpu_s:.1f} s with the store's set-up); card vs CPU, largest position "
+        f"difference {diff:.3e} m (bound 2e-2 m); ATE against the truth {ate0:.4f} m before, {ate_g:.4f} m after")
+    log(f"store: one reduced solve over {STORE_KF} keyframes {solve_ms:.3f} ms (CUDA events, 5 calls), on {card}")
+    if not (g_ok > 0.5 and c_ok > 0.5 and diff <= 2e-2 and ate_g < ate0):
+        raise AssertionError(f"store: card accepted {g_ok}, CPU accepted {c_ok}, difference {diff:.3e} m, "
+                             f"ATE {ate0:.4f} -> {ate_g:.4f} m")
+    return {"keyframes": STORE_KF, "loop_factors": n_loops, "solve_ms": solve_ms, "card_vs_cpu_m": diff,
+            "ate_before_m": ate0, "ate_after_m": ate_g, "cost": [g_c0, g_c1], "device": card}
+
 
 def run_diag(d):
     """Phase 7k: `python -m lego_loam_torch.diag_campus --frames N_DIAG` in
@@ -1918,7 +2054,8 @@ def run_diag(d):
 
 def profile_slice(cfg, scans, mode, **kw):
     """One frame step (`kw`: sync_free, graphs) in its steady state: a
-    fresh pipeline over chunks of 4 of the slice's scans (staged before),
+    fresh pipeline over chunks of 4 (graphed) or 2 of the slice's scans
+    (staged before),
     chunks to warm up (first use; graphed, two for the captures), then one chunk timed, one
     under `count_syncs` (host synchronizations per frame) and one under
     torch.profiler: device time and device kernels per scan and the
@@ -1930,7 +2067,12 @@ def profile_slice(cfg, scans, mode, **kw):
 
     from lego_loam_torch.pipeline import LegoLoamPipeline
 
-    n, warm = 4, 2 if kw.get("graphs", True) else 1  # graphed: the prepass is captured at its second chunk
+    graphed = kw.get("graphs", True)
+    # graphed: the prepass is captured at its second chunk. The eager steps
+    # run in chunks of 2 (4 until the script grew by phase 7l): their
+    # ~47,000 and ~19,000 kernels a scan make key_averages take ~90 and ~45 s
+    # over 4 scans
+    n, warm = (4, 2) if graphed else (2, 1)
     t_in = time.perf_counter()
     pipe = LegoLoamPipeline(cfg, seed=2, **kw)
     xs = [pipe.stage_chunk(pipe._prep_many(scans[s:s + n])) for s in range(0, (warm + 3) * n, n)]
@@ -2130,6 +2272,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_diag_") as d:
         summary["diag"] = run_diag(d)
     elapsed("7k")
+    summary["store"] = run_full_store(card)
+    elapsed("7l")
 
     # K1 times at the main path's shape: one launch per chunk of CHUNK scans
     k1_rows = []

@@ -20,19 +20,31 @@ after chunk 0 and at the end (the steady state excludes chunk 0), and
 graph size are timed (CUDA events around a warm call), and the closures
 are counted.
 
+With --probe-at, after the chunk that reaches each of those frame counts
+one graph solve and one attempt are timed at the store's size, not applied
+and left out of the drive's scans/s. The Stevens-scale configuration
+(STEVENS_RUN.json's course; its loop settings are not in that record, see
+README.md):
+
+    python -m lego_loam_torch.campus_run --laps 8 --straight 600 --turn 25 --imu --odom \\
+        --loop-cap 256 --time-gap 150 --radius 25 --probe-at 2000,10000,20000 \\
+        --out out_stevens_torch --json-out STEVENS_RUN_torch.json
+
 Writes --json-out (default CAMPUS_RUN_torch.json) with the keys of
 tools/campus_run.py's record plus `device` (the card's name and power
 limit as `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`
-gives them, or "cpu"), and under --out the run artifacts (`save_artifacts`),
-the map (`save_map`), loop_diag.json (one record per loop check) and
-launches.json (the kernels' launch counts over the drive and the drain,
-and the CUDA graphs' statistics). `failed` is set when an output is not
+gives them, or "cpu"), `peak_device_memory_gib` over the drive (null on
+the CPU) and `latency_by_keyframes` (the probes), and under --out the run
+artifacts (`save_artifacts`), the map (`save_map`), loop_diag.json (one
+record per loop check) and launches.json (the kernels' launch counts over
+the drive and the drain, and the CUDA graphs' statistics). `failed` is set when an output is not
 finite or the map ATE does not beat the odometry's (or 1 m).
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import json
@@ -47,10 +59,12 @@ import torch
 
 from . import cuda as kcuda
 from .config import LegoLoamConfig, vlp16
+from .distributed import all_rows
 from .io.scan_cache import get_or_render
 from .io.synthetic import campus_world, lap_trajectory, render_scan_swept, synth_imu_windows, synth_wheel_odom
 from .mapproducts import save_map
 from .pipeline import LegoLoamPipeline
+from .posegraph import reduced_solve
 from .utils.metrics import ate_rmse, rpe_rmse
 from .utils.profiling import synchronize
 
@@ -77,9 +91,13 @@ def parse_args(argv=None):
     ap.add_argument("--radius", type=float, default=None, help="override mapping.history_keyframe_search_radius")
     ap.add_argument("--time-gap", type=float, default=None,
                     help="override mapping.loop_time_gap (candidates must be at least this many seconds older)")
+    ap.add_argument("--probe-at", default="",
+                    help="comma-separated frame counts: after the chunk that reaches each, time one graph solve "
+                         "and one loop-closure attempt at the store's size (not applied; left out of scans/s)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="run on the GPU (default) or, when asked, on the CPU")
     args = ap.parse_args(argv)
+    args.probe_at = sorted(int(x) for x in args.probe_at.split(",") if x)
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.error("no CUDA device is visible; pass --device cpu to run on the CPU")
     return args
@@ -174,12 +192,17 @@ def build_course(args, cfg: LegoLoamConfig, workers: int = 1, log=print) -> Cour
     return Course(poses=poses, lap_len=lap_len, variants=variants)
 
 
-def run_course(pipe: LegoLoamPipeline, course: Course, chunk: int, imu=None, odom=None, log=print) -> dict:
+def run_course(pipe: LegoLoamPipeline, course: Course, chunk: int, imu=None, odom=None, log=print,
+               probe_at=()) -> dict:
     """`warmup_loop_closure`, then the whole chunks of the course through
     `stage_chunk_async` + `process_chunk` (the next chunk staged while this
     one runs), then `finalize`. The kernels' launch counts are set to 0
-    after the warm-up. Returns the frames run and the steady and overall
-    scans/s."""
+    after the warm-up, and the device's peak memory is read over the drive.
+    After the chunk that reaches each frame count of `probe_at`,
+    `store_probe` times a solve and an attempt at the store's size; its
+    seconds and launches are left out of the drive's. Returns the frames
+    run, the steady and overall scans/s, the peak memory in GiB (None on
+    the CPU) and the probes."""
     n = len(course.poses)
     n_run = n - n % chunk
     n_chunks = n_run // chunk
@@ -196,7 +219,13 @@ def run_course(pipe: LegoLoamPipeline, course: Course, chunk: int, imu=None, odo
     t0 = time.perf_counter()
     pipe.warmup_loop_closure()
     log(f"warmed in {time.perf_counter() - t0:.1f}s")
+    cuda = pipe.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(pipe.device)
+        torch.cuda.reset_peak_memory_stats(pipe.device)
     kcuda.reset_counts()
+    pending = list(probe_at)
+    probes, paused = [], 0.0
     t_start = time.perf_counter()
     t_warm = None
     nxt = stage(0)
@@ -205,18 +234,26 @@ def run_course(pipe: LegoLoamPipeline, course: Course, chunk: int, imu=None, odo
         if c + 1 < n_chunks:
             nxt = stage((c + 1) * chunk)
         pipe.process_chunk(cur)
+        done = (c + 1) * chunk
         if c == 0:
             synchronize(pipe.bstate.t_map)
             t_warm = time.perf_counter()
+        while pending and done >= pending[0]:
+            pending.pop(0)
+            t0 = time.perf_counter()
+            probes.append(store_probe(pipe))
+            log(f"probe at frame {done}: {probes[-1]}")
+            paused += time.perf_counter() - t0
         if (c + 1) % 20 == 0:
-            done = (c + 1) * chunk
             log(f"frame {done}/{n_run} kf={int(pipe.bstate.n_kf)} loops={len(pipe.loop_factors)} "
-                f"({(done - chunk) / (time.perf_counter() - t_warm):.1f} scans/s)")
+                f"({(done - chunk) / (time.perf_counter() - t_warm - paused):.1f} scans/s)")
     synchronize(pipe.bstate.t_map)
-    t_end = time.perf_counter()
+    t_end = time.perf_counter() - paused
     pipe.finalize()
     steady = (n_run - chunk) / (t_end - t_warm) if n_chunks > 1 else float("nan")
-    return {"frames": n_run, "scans_per_sec": steady, "scans_per_sec_incl_compile": n_run / (t_end - t_start)}
+    peak = torch.cuda.max_memory_allocated(pipe.device) / 2 ** 30 if cuda else None
+    return {"frames": n_run, "scans_per_sec": steady, "scans_per_sec_incl_compile": n_run / (t_end - t_start),
+            "peak_device_memory_gib": peak, "probes": probes}
 
 
 def _timed_ms(fn, device) -> float:
@@ -236,6 +273,23 @@ def _timed_ms(fn, device) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def store_probe(pipe: LegoLoamPipeline) -> dict:
+    """The keyframes in the store now, and the ms of one `reduced_solve`
+    over it and of one loop-closure attempt of its newest keyframe against
+    its oldest, neither applied (CUDA events around a warm call). The
+    kernels' launch counts are left as they were."""
+    counts = (collections.Counter(kcuda.LAUNCHES), collections.Counter(kcuda.SITES))
+    bs = pipe.bstate
+    n_kf = int(bs.n_kf)
+    solve_ms = _timed_ms(lambda: reduced_solve(*(all_rows(x) for x in (bs.kf_R, bs.kf_t, bs.kf_rel_R, bs.kf_rel_t)),
+                                               bs.n_kf, pipe._loop_buf, pipe.cfg), pipe.device)
+    newest = (n_kf - 1) % bs.capacity
+    attempt_ms = _timed_ms(lambda: pipe._attempt(int(bs.ordered_slots()[0]), newest, n_kf), pipe.device)
+    kcuda.reset_counts()
+    kcuda.add(counts)
+    return {"keyframes": n_kf, "solve_ms": solve_ms, "attempt_ms": attempt_ms}
+
+
 def latency_probe(pipe: LegoLoamPipeline):
     """The graph solve (queued and applied by its cost gate, as at an
     accepted closure) and one loop-closure attempt, at the final graph
@@ -250,7 +304,9 @@ def latency_probe(pipe: LegoLoamPipeline):
 def course_result(pipe: LegoLoamPipeline, course: Course, args, timing: dict, latency, device_name: str) -> dict:
     """tools/campus_run.py's record: map and odometry ATE of the per-frame
     logs (each pose as it was processed) and of the corrected keyframe
-    store against the truth, no alignment; RPE over ~100 m of frames."""
+    store against the truth, no alignment; RPE over ~100 m of frames. Its
+    keys are the tool's plus `device`, the drive's peak device memory and
+    the store probes of `run_course`."""
     cfg = pipe.cfg
     n_run = timing["frames"]
     gt = course.truth(n_run)
@@ -287,6 +343,8 @@ def course_result(pipe: LegoLoamPipeline, course: Course, args, timing: dict, la
         "failed": (not finite) or not (ate_map < max(ate_odom, 1.0)),
         "laps": args.laps,
         "device": device_name,
+        "peak_device_memory_gib": timing["peak_device_memory_gib"],
+        "latency_by_keyframes": timing["probes"],
     }
 
 
@@ -328,7 +386,7 @@ def main(argv=None) -> int:
     imu = synth_imu_windows(course.poses, cfg) if args.imu else None
     odom = synth_wheel_odom(course.poses, cfg) if args.odom else None
     pipe = LegoLoamPipeline(cfg, device=device)
-    timing = run_course(pipe, course, args.chunk, imu=imu, odom=odom, log=log)
+    timing = run_course(pipe, course, args.chunk, imu=imu, odom=odom, log=log, probe_at=args.probe_at)
     launches = launch_record(pipe)  # the drive's and the drain's, not the probe's
     latency = latency_probe(pipe)
     result = course_result(pipe, course, args, timing, latency, device_name(device))

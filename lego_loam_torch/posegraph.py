@@ -258,8 +258,9 @@ def solve_dense_gn(
     their update is exactly zero); pose 0 carries the gauge prior."""
     N = poses_R.shape[0]
     dev, dt = poses_t.device, poses_t.dtype
-    diag_w = torch.where(active_mask, damping, prior_w).to(dt)
-    diag_w[0] = prior_w
+    # pose 0's gauge prior selected on the device: a scalar written at an
+    # index is a host-to-device copy, which waits for the queue
+    diag_w = torch.where(active_mask & (torch.arange(N, device=dev) > 0), damping, prior_w).to(dt)
     diag = torch.diag_embed(diag_w.repeat_interleave(6))
     i, j = factors.i.long(), factors.j.long()
     seg = factor_segments(factors, N)

@@ -14,8 +14,10 @@ held to the slice's bounds (map 1.5 cm, odometry 8 cm)."""
 
 import dataclasses
 import importlib.util
+import io
 import json
 import sys
+from contextlib import redirect_stdout
 from pathlib import Path
 
 import jax
@@ -137,13 +139,15 @@ def test_course_matches_reference(runs):
 
 
 def test_record_and_products(runs):
-    """The record has CAMPUS_RUN.json's keys plus `device`, and the file
+    """The record has CAMPUS_RUN.json's keys plus `device`, the peak device
+    memory (None on the CPU) and the store probes (none asked), and the file
     written holds it; the artifacts, the map, loop_diag.json and
     launches.json are written."""
     _, ours, args = runs
     with open(ROOT / "CAMPUS_RUN.json") as f:
         keys = set(json.load(f))
-    assert set(ours) == keys | {"device"} and ours["device"] == "cpu"
+    assert set(ours) == keys | {"device", "peak_device_memory_gib", "latency_by_keyframes"}
+    assert ours["device"] == "cpu" and ours["peak_device_memory_gib"] is None and ours["latency_by_keyframes"] == []
     with open(args.json_out) as f:
         assert json.load(f) == ours
     out = Path(args.out)
@@ -157,13 +161,90 @@ def test_record_and_products(runs):
         assert sorted(json.load(f)) == ["graph_stats", "launches", "launches_by_site"]
 
 
+class Recorded(Exception):
+    """Raised by the stand-in pipelines once they have the config."""
+
+
+# the Stevens-scale configuration (README.md; its loop settings inferred
+# from out_stevens/loop_diag.json), the IMU variant and the defaults
+MAIN_FLAGS = {
+    "stevens": ["--laps", "8", "--straight", "600", "--turn", "25", "--imu", "--odom", "--loop-cap", "256",
+                "--time-gap", "150", "--radius", "25"],
+    "imu_odom": ["--imu", "--odom"],
+    "defaults": [],
+}
+
+
+@pytest.mark.parametrize("name", MAIN_FLAGS)
+def test_main_config_and_course_match_tool(name, tmp_path):
+    """The tool's main and the port's, each up to its pipeline with the
+    renders recorded and skipped: the configs equal field by field, the
+    same lap renders asked for (tag and parameters), and the same course;
+    the Stevens flags give 20,000 frames in 8 laps of 2,500 (625 chunks of
+    32), more loop factors than the 173 of STEVENS_RUN.json."""
+    flags = MAIN_FLAGS[name]
+    seen = {"ref": [], "ours": []}
+
+    def recorder(side):
+        def get_or_render(tag, params, fn):
+            seen[side].append((tag, params))
+            return [None] * (params["lap_len"] + 1)
+        return get_or_render
+
+    def stand_in(side):
+        def make(cfg, **kw):
+            seen[side].append(cfg)
+            raise Recorded
+        return make
+
+    saved = {k: getattr(jax.config, k) for k in (
+        "jax_compilation_cache_dir", "jax_persistent_cache_min_entry_size_bytes",
+        "jax_persistent_cache_min_compile_time_secs")}
+    ref_log, our_log = io.StringIO(), io.StringIO()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sys, "path", list(sys.path))
+        tool = load_tool()
+        import lego_loam_tpu.pipeline as ref_pipeline
+        import scan_cache
+
+        mp.setattr(scan_cache, "get_or_render", recorder("ref"))
+        mp.setattr(ref_pipeline, "LegoLoamPipeline", stand_in("ref"))
+        mp.setattr(sys, "argv", ["campus_run.py", *flags, "--out", str(tmp_path / "ref_out"),
+                                 "--json-out", str(tmp_path / "ref.json")])
+        with pytest.raises(Recorded), redirect_stdout(ref_log):
+            tool.main()
+    for k, v in saved.items():
+        jax.config.update(k, v)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(campus_run, "get_or_render", recorder("ours"))
+        mp.setattr(campus_run, "LegoLoamPipeline", stand_in("ours"))
+        with pytest.raises(Recorded), redirect_stdout(our_log):
+            campus_run.main(["--device", "cpu", *flags, "--out", str(tmp_path / "out"),
+                             "--json-out", str(tmp_path / "ours.json")])
+    *ref_renders, ref_cfg = seen["ref"]
+    *our_renders, our_cfg = seen["ours"]
+    assert dataclasses.asdict(config_from_reference(ref_cfg)) == dataclasses.asdict(our_cfg)
+    assert ref_renders == our_renders
+    course = [line for line in ref_log.getvalue().splitlines() if line.startswith("course:")]
+    assert course and course == [line for line in our_log.getvalue().splitlines() if line.startswith("course:")]
+    args = campus_run.parse_args(["--device", "cpu", *flags])
+    n = len(synthetic.lap_trajectory(args.laps, args.straight, args.turn))
+    assert our_renders[0][1]["lap_len"] == n // args.laps and len(our_renders) == args.render_variants
+    if name == "stevens":
+        m = our_cfg.mapping
+        assert n == 20000 and n % args.chunk == 0 and our_renders[0][1]["lap_len"] == 2500
+        assert m.max_keyframes == 20480 and m.max_loop_factors >= 173 and m.enable_loop_closure
+        assert our_cfg.pipeline.use_imu_undistortion and our_cfg.odometry.odom_prior_mode == "init"
+
+
 def test_defaults_write_no_reference_output():
     """The defaults (the tool's flags and defaults, plus --device) write
     nothing of the JAX package's: the record is
     CAMPUS_RUN_torch.json and the products go to a gitignored directory."""
     args = campus_run.parse_args(["--device", "cpu"])
     tool_defaults = dict(laps=3, straight=150, turn=25, chunk=32, max_keyframes=20480, render_variants=3,
-                         no_loop=False, imu=False, odom=False, stride=None, loop_cap=None, radius=None, time_gap=None)
+                         no_loop=False, imu=False, odom=False, stride=None, loop_cap=None, radius=None, time_gap=None,
+                         probe_at=[])
     assert {k: getattr(args, k) for k in tool_defaults} == tool_defaults
     assert args.json_out == "CAMPUS_RUN_torch.json" and args.out == "out_campus_torch"
     assert not {Path(args.json_out).parts[0], Path(args.out).parts[0]} & REFERENCE_OUTPUTS

@@ -14,7 +14,15 @@ chain-only `_optimize_graph` over the wrapped window moves the newest pose
 follow append order across the wrap, and the resident slots of a store
 at and past capacity equal the reference's. A drive of the first wrap
 (n = K + 2) against the reference's is left out: the reference's drive
-alone takes ~87 s here, the whole of this file's budget."""
+alone takes ~87 s here, the whole of this file's budget.
+
+Past `max_loop_factors`, with no drive: one list of loop factors, more
+than the cap of 3 and some on keyframes the ring has retired, given to
+both packages over the same store; the whole-graph factors that
+`_graph_factors` assembles equal those the reference's
+`_optimize_graph_sharded` hands its solver (the newest resident factors,
+at most the cap), and the device loop buffer that `_sync_loop_buf`
+rebuilds (the newest factors, at most the cap) equals the reference's."""
 
 import dataclasses
 
@@ -22,11 +30,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import lego_loam_tpu.backend as ref_backend
+import lego_loam_tpu.pipeline as ref_pipeline
+from lego_loam_tpu.distributed import make_mesh as ref_make_mesh
 from lego_loam_torch.convert import backend_state_from_reference, config_from_reference
 from lego_loam_torch.io.synthetic import render_scan, straight_trajectory
-from lego_loam_torch.pipeline import LegoLoamPipeline
+from lego_loam_torch.math import se3
+from lego_loam_torch.pipeline import LegoLoamPipeline, LoopFactor
 from lego_loam_torch.utils.metrics import ate_rmse
 
 from test_backend import small_cfg
@@ -106,3 +118,67 @@ def test_ordered_slots_match_reference(n_kf):
     ours = backend_state_from_reference(jax.device_get(ref), "cpu")
     assert np.array_equal(ours.ordered_slots(), np.asarray(ref.ordered_slots()))
     assert len(ours.ordered_slots()) == min(n_kf, K)
+
+
+LOOP_CAP = 3
+
+
+class _Captured(Exception):
+    """Raised by the stand-in solver once it has the reference's factors."""
+
+
+@pytest.mark.parametrize("n_kf", [K - 1, 3 * K + 2])
+def test_loop_factor_selection_past_the_cap_matches_reference(n_kf):
+    """Seven loop factors, cap 3, over a store of n_kf keyframes (at 3K + 2
+    the oldest factors lie on retired keyframes): the port's whole-graph
+    factors and device loop buffer equal the reference's, field by field."""
+    ref_cfg = ring_cfg()
+    ref_cfg = dataclasses.replace(ref_cfg, mapping=dataclasses.replace(
+        ref_cfg.mapping, enable_loop_closure=True, max_loop_factors=LOOP_CAP))
+    rs = np.random.RandomState(7)
+    ref = ref_pipeline.LegoLoamPipeline(ref_cfg)
+    rel_R = se3.exp_so3(torch.from_numpy(rs.randn(K, 3).astype(np.float32) * 0.05)).numpy()
+    ref.bstate = ref.bstate.replace(
+        n_kf=jnp.int32(n_kf), kf_rel_R=jnp.asarray(rel_R), kf_rel_t=jnp.asarray(rs.randn(K, 3).astype(np.float32)))
+    pipe = LegoLoamPipeline(config_from_reference(ref_cfg), device="cpu")
+    pipe.bstate = backend_state_from_reference(jax.device_get(ref.bstate), "cpu")
+
+    base = n_kf - min(n_kf, K)
+    pairs = [(base - 3, n_kf - 1), (base + 1, base + 3), (0, n_kf - 2), (base, n_kf - 1), (base + 2, n_kf - 3),
+             (base - 1, base + 4), (base + 1, n_kf - 1)]
+    factors = []
+    for i, j in pairs:
+        i, j = max(i, 0), max(j, 0)
+        R = se3.exp_so3(torch.from_numpy(rs.randn(3).astype(np.float32) * 0.1)).numpy()
+        factors.append((i, j, R, rs.randn(3).astype(np.float32), float(rs.uniform(0.01, 0.3))))
+    ref.loop_factors = [ref_pipeline.LoopFactor(*f) for f in factors]
+    pipe.loop_factors = [LoopFactor(*f) for f in factors]
+    if n_kf > K:
+        assert any(min(i, j) < base for i, j, *_ in factors), "no factor on a retired keyframe"
+
+    captured = {}
+
+    def solver(R, t, f, active):
+        captured.update(factors=f, active=active)
+        raise _Captured
+
+    ref._mesh = ref_make_mesh(1)
+    ref._solve_graph_sharded = solver
+    with pytest.raises(_Captured):
+        ref._optimize_graph_sharded()
+    ours, active, _ = pipe._graph_factors()
+    for name in ("i", "j", "R", "t", "info", "mask"):
+        a, b = getattr(ours, name).numpy(), np.asarray(getattr(captured["factors"], name))
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+    assert np.array_equal(active.numpy(), np.asarray(captured["active"]))
+    live = ours.mask[K - 1:].numpy()
+    resident = [f for f in factors if f[0] >= base and f[1] >= base]
+    assert len(resident) > LOOP_CAP and live.sum() == LOOP_CAP
+
+    ref._sync_loop_buf()
+    pipe._sync_loop_buf()
+    for name in ("i", "j", "R", "t", "info", "mask"):
+        a, b = getattr(pipe._loop_buf, name).numpy(), np.asarray(getattr(ref._loop_buf, name))
+        assert np.array_equal(a, b), name
+    assert pipe._loop_write == ref._loop_write == LOOP_CAP
+    assert pipe._loop_buf.mask.all() and list(pipe._loop_buf.i.numpy()) == [f[0] for f in factors[-LOOP_CAP:]]
