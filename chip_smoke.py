@@ -162,7 +162,9 @@ Phases, each printing a progress line:
      revisiting lap), the pipeline's pose-graph solve (`_dispatch_solve`)
      on the card under `torch.cuda.set_sync_debug_mode("error")` against
      the same solve on the CPU (positions within 2e-2 m, both accepted,
-     nearer the truth than the chain), one reduced solve timed;
+     nearer the truth than the chain), one reduced solve timed; then a
+     chain four times as far off, both solves accepted and within 0.5 m
+     (ATE) of the truth;
   8. the frame step in its steady state, graphed, eager (`graphs=False`)
      and host-branching (`sync_free=False`): after warm chunks of 4 (two
      graphed, for the captures; eager: one chunk of 2, not 4, since phase 7l), one
@@ -247,6 +249,10 @@ N_CONT = 32
 # 2,500 keyframes in 20,480 slots) with more loop factors than the default
 # max_loop_factors of 128, each revisiting lap closing on the lap before
 STORE_KF, STORE_LAPS, STORE_LOOPS_A_LAP, STORE_LOOP_CAP = 20000, 8, 28, 256
+# the chains' yaw bias a step: the Stevens-scale run's drift and four times
+# it; the second chain's solves must each end within STORE_FAR_ATE m (ATE)
+# of the truth
+STORE_BIAS_DEG, STORE_FAR_ATE = (2.5e-4, 1e-3), 0.5
 
 
 def log(msg):
@@ -1901,10 +1907,8 @@ def store_chain(n, laps, loops_a_lap, yaw_bias_deg=2.5e-4, seed=0):
     lap before (ids drawn from the seed). The default bias puts the store
     2.41 m (ATE) from the truth, at most 4.16 m: the Stevens-scale run's
     store holds map poses 2.27 m off (its map ATE), not the odometry's
-    17.36 m. (A bias of 1e-3 deg, 9.58 m off, asks anchor moves of 16.5 m,
-    more than three GN steps under the 5 m trust region make; that solve
-    ends 6.7 cm apart on the card and the CPU: ROADMAP §3.) Returns (truth t, R_est, t_est,
-    rel_R, rel_t, loops [(i, j, R, t)]) as numpy float32."""
+    17.36 m. A bias of 1e-3 deg puts it 9.58 m off. Returns (truth t,
+    R_est, t_est, rel_R, rel_t, loops [(i, j, R, t)]) as numpy float32."""
     def rz(a):
         c, s = np.cos(a), np.sin(a)
         out = np.zeros(a.shape + (3, 3), np.float32)
@@ -1954,62 +1958,96 @@ def full_store_pipeline(cfg, chain, device):
     return pipe
 
 
-def run_full_store(card):
-    """Phase 7l: the Stevens-scale store without the 20-minute drive. The
-    flagship configuration with max_loop_factors STORE_LOOP_CAP over a
-    store of STORE_KF keyframes (`store_chain`: STORE_LAPS laps, more than
-    128 loop factors); the pipeline's pose-graph solve (`_dispatch_solve`:
-    `reduced_solve` and the in-place writes of the store and the map pose)
-    on the card under `torch.cuda.set_sync_debug_mode("error")`, so that
-    any read inside it raises and names its line; the same solve on the
-    CPU; the two stores' positions within 2e-2 m of each other (phase 7h's
-    bound for a reduced solve), both solves accepted by their cost gate and
-    nearer the truth than the drifted chain. The solve timed with CUDA
-    events (a pure `reduced_solve` over the store, before the applied one),
-    printed beside the card's name and power limit."""
-    from lego_loam_torch.posegraph import reduced_solve
-
-    cfg = lap_config()
-    cfg = dataclasses.replace(cfg, mapping=dataclasses.replace(cfg.mapping, max_loop_factors=STORE_LOOP_CAP))
-    t0 = time.perf_counter()
-    chain = store_chain(STORE_KF, STORE_LAPS, STORE_LOOPS_A_LAP)
-    truth = chain[0]
-    n_loops = len(chain[-1])
+def solve_store_both(cfg, chain):
+    """The pipeline's pose-graph solve (`_dispatch_solve`: `reduced_solve`
+    and the in-place writes of the store and the map pose) over the chain's
+    store on the card under `torch.cuda.set_sync_debug_mode("error")`, so
+    that any read inside it raises and names its line, and on the CPU.
+    Returns (the card's pipeline, accepted, cost before and after, largest
+    anchor move; the CPU's accepted and costs; the card's and the CPU's
+    keyframe positions; the CPU's seconds with the store's set-up)."""
     gc.collect()
     torch.cuda.empty_cache()
     gpu = full_store_pipeline(cfg, chain, "cuda")
     torch.cuda.synchronize()
-    log(f"store: {STORE_KF} keyframes over {STORE_LAPS} laps in {gpu.bstate.capacity} slots, {n_loops} loop factors "
-        f"(cap {STORE_LOOP_CAP}), built in {time.perf_counter() - t0:.2f} s")
-    bs = gpu.bstate
-    solve_ms = time_ms(lambda: reduced_solve(bs.kf_R, bs.kf_t, bs.kf_rel_R, bs.kf_rel_t, bs.n_kf, gpu._loop_buf, cfg),
-                       reps=5, warmup=1)
     torch.cuda.set_sync_debug_mode("error")
     try:
         gpu._dispatch_solve(None)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    g_ok, g_c0, g_c1, g_moved = gpu._solve_pending[0].tolist()
+    g_diag = gpu._solve_pending[0].tolist()
     gpu._pickup_solve()
     t0 = time.perf_counter()
     cpu = full_store_pipeline(cfg, chain, "cpu")
     cpu._dispatch_solve(None)
-    c_ok, c_c0, c_c1, _ = cpu._solve_pending[0].tolist()
+    c_diag = cpu._solve_pending[0].tolist()
     cpu_s = time.perf_counter() - t0
-    g_t = gpu.bstate.kf_t[:STORE_KF].cpu().numpy()
-    c_t = cpu.bstate.kf_t[:STORE_KF].numpy()
-    diff = float(np.linalg.norm(g_t - c_t, axis=1).max())
-    ate0, ate_g = ate(chain[2], truth), ate(g_t, truth)
-    log(f"store: the pipeline's solve on the card under set_sync_debug_mode('error'): accepted {g_ok > 0.5}, cost "
-        f"{g_c0:.6g} -> {g_c1:.6g}, largest anchor move {g_moved:.3f} m; on the CPU: accepted {c_ok > 0.5}, cost "
-        f"{c_c0:.6g} -> {c_c1:.6g} ({cpu_s:.1f} s with the store's set-up); card vs CPU, largest position "
-        f"difference {diff:.3e} m (bound 2e-2 m); ATE against the truth {ate0:.4f} m before, {ate_g:.4f} m after")
-    log(f"store: one reduced solve over {STORE_KF} keyframes {solve_ms:.3f} ms (CUDA events, 5 calls), on {card}")
-    if not (g_ok > 0.5 and c_ok > 0.5 and diff <= 2e-2 and ate_g < ate0):
-        raise AssertionError(f"store: card accepted {g_ok}, CPU accepted {c_ok}, difference {diff:.3e} m, "
-                             f"ATE {ate0:.4f} -> {ate_g:.4f} m")
-    return {"keyframes": STORE_KF, "loop_factors": n_loops, "solve_ms": solve_ms, "card_vs_cpu_m": diff,
-            "ate_before_m": ate0, "ate_after_m": ate_g, "cost": [g_c0, g_c1], "device": card}
+    n = len(chain[0])
+    return gpu, g_diag, c_diag, gpu.bstate.kf_t[:n].cpu().numpy(), cpu.bstate.kf_t[:n].numpy(), cpu_s
+
+
+def run_full_store(card):
+    """Phase 7l: the Stevens-scale store without the 20-minute drive. The
+    flagship configuration with max_loop_factors STORE_LOOP_CAP over a
+    store of STORE_KF keyframes (`store_chain`: STORE_LAPS laps, more than
+    128 loop factors), solved on the card under
+    `set_sync_debug_mode("error")` and on the CPU (`solve_store_both`),
+    for two chains:
+
+    - the Stevens-scale drift (STORE_BIAS_DEG[0]): the card's positions
+      within 2e-2 m of the CPU's (phase 7h's bound for a reduced solve),
+      both solves accepted by their cost gate and nearer the truth than
+      the drifted chain. The chain asks anchor moves of 4.16 m from a cost
+      of 21,198; the Stevens-scale run's largest solve moved an anchor
+      3.39 m from a cost of 26,187 (its loop_diag.json, 23 solves);
+    - four times that drift (STORE_BIAS_DEG[1], 9.58 m off, moves of
+      16.5 m): three GN steps under the 5 m trust region do not converge
+      it, and the card and the CPU stop at different points (ROADMAP
+      §3). Both solves accepted and each within STORE_FAR_ATE of the
+      truth (ATE; measured on an H100 80GB HBM3 at 700 W: card 0.4065 m,
+      its host's CPU 0.3595 m, 6.710e-2 m apart), the difference printed.
+
+    The solve timed with CUDA events (a pure `reduced_solve` over the first
+    chain's store, before the applied one), printed beside the card's name
+    and power limit."""
+    from lego_loam_torch.posegraph import reduced_solve
+
+    cfg = lap_config()
+    cfg = dataclasses.replace(cfg, mapping=dataclasses.replace(cfg.mapping, max_loop_factors=STORE_LOOP_CAP))
+    out = {"keyframes": STORE_KF, "device": card}
+    for k, bias in enumerate(STORE_BIAS_DEG):
+        t0 = time.perf_counter()
+        chain = store_chain(STORE_KF, STORE_LAPS, STORE_LOOPS_A_LAP, yaw_bias_deg=bias)
+        truth, n_loops = chain[0], len(chain[-1])
+        gpu, (g_ok, g_c0, g_c1, g_moved), (c_ok, c_c0, c_c1, _), g_t, c_t, cpu_s = solve_store_both(cfg, chain)
+        diff = float(np.linalg.norm(g_t - c_t, axis=1).max())
+        ate0, ate_g, ate_c = ate(chain[2], truth), ate(g_t, truth), ate(c_t, truth)
+        log(f"store {k}: {STORE_KF} keyframes over {STORE_LAPS} laps in {gpu.bstate.capacity} slots, yaw bias "
+            f"{bias:g} deg a step, {n_loops} loop factors (cap {STORE_LOOP_CAP}); the pipeline's solve on the card "
+            f"under set_sync_debug_mode('error'): accepted {g_ok > 0.5}, cost {g_c0:.6g} -> {g_c1:.6g}, largest "
+            f"anchor move {g_moved:.3f} m; on the CPU: accepted {c_ok > 0.5}, cost {c_c0:.6g} -> {c_c1:.6g} "
+            f"({cpu_s:.1f} s with the store's set-up); card vs CPU, largest position difference {diff:.3e} m; "
+            f"ATE against the truth {ate0:.4f} m before, after {ate_g:.4f} m (card) and {ate_c:.4f} m (CPU); "
+            f"{time.perf_counter() - t0:.1f} s")
+        accepted = g_ok > 0.5 and c_ok > 0.5
+        if k == 0:
+            bs = gpu.bstate
+            solve_ms = time_ms(lambda: reduced_solve(bs.kf_R, bs.kf_t, bs.kf_rel_R, bs.kf_rel_t, bs.n_kf,
+                                                     gpu._loop_buf, cfg), reps=5, warmup=1)
+            log(f"store: one reduced solve over {STORE_KF} keyframes {solve_ms:.3f} ms (CUDA events, 5 calls), "
+                f"on {card}")
+            if not (accepted and diff <= 2e-2 and ate_g < ate0):
+                raise AssertionError(f"store: card accepted {g_ok}, CPU accepted {c_ok}, difference {diff:.3e} m "
+                                     f"(bound 2e-2), ATE {ate0:.4f} -> {ate_g:.4f} m")
+            out.update(loop_factors=n_loops, solve_ms=solve_ms, card_vs_cpu_m=diff, ate_before_m=ate0,
+                       ate_after_m=ate_g, cost=[g_c0, g_c1])
+        else:
+            if not (accepted and max(ate_g, ate_c) <= STORE_FAR_ATE):
+                raise AssertionError(f"store, far chain: card accepted {g_ok}, CPU accepted {c_ok}, ATE after "
+                                     f"{ate_g:.4f} (card) and {ate_c:.4f} m (CPU), bound {STORE_FAR_ATE} m")
+            out["far"] = {"ate_before_m": ate0, "ate_after_m": [ate_g, ate_c], "card_vs_cpu_m": diff}
+        del gpu
+    return out
 
 
 def run_diag(d):

@@ -20,6 +20,11 @@ after chunk 0 and at the end (the steady state excludes chunk 0), and
 graph size are timed (CUDA events around a warm call), and the closures
 are counted.
 
+--noise-seed K renders the same course with other range noise and
+--host-step runs the frame steps as the CPU runs them (host branching, no
+CUDA graphs): the two ways to see how far a course's accuracy moves with
+the last bits of its inputs or of its arithmetic.
+
 With --probe-at, after the chunk that reaches each of those frame counts
 one graph solve and one attempt are timed at the store's size, not applied
 and left out of the drive's scans/s. The Stevens-scale configuration
@@ -94,6 +99,10 @@ def parse_args(argv=None):
     ap.add_argument("--probe-at", default="",
                     help="comma-separated frame counts: after the chunk that reaches each, time one graph solve "
                          "and one loop-closure attempt at the store's size (not applied; left out of scans/s)")
+    ap.add_argument("--noise-seed", type=int, default=0,
+                    help="offset every render's noise seed by 100,000 times this (0: tools/campus_run.py's course)")
+    ap.add_argument("--host-step", action="store_true",
+                    help="run the frame steps with host branching and no CUDA graphs (sync_free=False), as on the CPU")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="run on the GPU (default) or, when asked, on the CPU")
     args = ap.parse_args(argv)
@@ -168,8 +177,9 @@ def render_pool(workers: int):
 def build_course(args, cfg: LegoLoamConfig, workers: int = 1, log=print) -> Course:
     """The course of tools/campus_run.py: ~1 building every 10 m and a
     pillar every 6 m of perimeter, 1 cm range noise, variant v's frame i
-    seeded 9000 v + 100 + i. With workers > 1 the renders not in the cache
-    run in that many spawned processes."""
+    seeded 9000 v + 100 + i (plus 100,000 times --noise-seed). With
+    workers > 1 the renders not in the cache run in that many spawned
+    processes."""
     poses = lap_trajectory(args.laps, args.straight, args.turn)
     n = len(poses)
     lap_len = n // args.laps
@@ -184,9 +194,11 @@ def build_course(args, cfg: LegoLoamConfig, workers: int = 1, log=print) -> Cour
     variants = []
     with render_pool(workers) as pool:
         for v in range(max(1, args.render_variants)):
-            jobs = [(poses[i - 1] if i > 0 else poses[i], poses[i % n], cfg, world, 9000 * v + 100 + i)
-                    for i in range(lap_len + 1)]
+            jobs = [(poses[i - 1] if i > 0 else poses[i], poses[i % n], cfg, world,
+                     9000 * v + 100 + i + 100_000 * args.noise_seed) for i in range(lap_len + 1)]
             params = {"lap_len": lap_len, "straight": args.straight, "turn": args.turn, "variant": v, "v": 2}
+            if args.noise_seed:
+                params["noise_seed"] = args.noise_seed
             variants.append(get_or_render("campus_lap", params, lambda jobs=jobs: render_swept(jobs, pool)))
     log(f"rendered in {time.perf_counter() - t0:.1f}s")
     return Course(poses=poses, lap_len=lap_len, variants=variants)
@@ -240,6 +252,7 @@ def run_course(pipe: LegoLoamPipeline, course: Course, chunk: int, imu=None, odo
             t_warm = time.perf_counter()
         while pending and done >= pending[0]:
             pending.pop(0)
+            synchronize(pipe.bstate.t_map)  # the chunk's own work stays on the drive's clock
             t0 = time.perf_counter()
             probes.append(store_probe(pipe))
             log(f"probe at frame {done}: {probes[-1]}")
@@ -276,29 +289,28 @@ def _timed_ms(fn, device) -> float:
 def store_probe(pipe: LegoLoamPipeline) -> dict:
     """The keyframes in the store now, and the ms of one `reduced_solve`
     over it and of one loop-closure attempt of its newest keyframe against
-    its oldest, neither applied (CUDA events around a warm call). The
+    its oldest (CUDA events around a warm call), neither applied. The
     kernels' launch counts are left as they were."""
     counts = (collections.Counter(kcuda.LAUNCHES), collections.Counter(kcuda.SITES))
     bs = pipe.bstate
     n_kf = int(bs.n_kf)
-    solve_ms = _timed_ms(lambda: reduced_solve(*(all_rows(x) for x in (bs.kf_R, bs.kf_t, bs.kf_rel_R, bs.kf_rel_t)),
-                                               bs.n_kf, pipe._loop_buf, pipe.cfg), pipe.device)
-    newest = (n_kf - 1) % bs.capacity
-    attempt_ms = _timed_ms(lambda: pipe._attempt(int(bs.ordered_slots()[0]), newest, n_kf), pipe.device)
+    oldest, newest = int(bs.ordered_slots()[0]), (n_kf - 1) % bs.capacity
+    rows = [all_rows(x) for x in (bs.kf_R, bs.kf_t, bs.kf_rel_R, bs.kf_rel_t)]
+    solve_ms = _timed_ms(lambda: reduced_solve(*rows, bs.n_kf, pipe._loop_buf, pipe.cfg), pipe.device)
+    attempt_ms = _timed_ms(lambda: pipe._attempt(oldest, newest, n_kf), pipe.device)
     kcuda.reset_counts()
     kcuda.add(counts)
     return {"keyframes": n_kf, "solve_ms": solve_ms, "attempt_ms": attempt_ms}
 
 
 def latency_probe(pipe: LegoLoamPipeline):
-    """The graph solve (queued and applied by its cost gate, as at an
-    accepted closure) and one loop-closure attempt, at the final graph
-    size. Returns (solve ms, attempt ms)."""
-    solve_ms = _timed_ms(lambda: pipe._dispatch_solve(None), pipe.device)
+    """`store_probe` at the final graph size, then the solve applied once
+    by its cost gate, as tools/campus_run.py applies it. Returns (solve ms,
+    attempt ms)."""
+    probe = store_probe(pipe)
+    pipe._dispatch_solve(None)
     pipe._pickup_solve()
-    n_kf = int(pipe.bstate.n_kf)
-    attempt_ms = _timed_ms(lambda: pipe._attempt(0, 0, n_kf), pipe.device)
-    return solve_ms, attempt_ms
+    return probe["solve_ms"], probe["attempt_ms"]
 
 
 def course_result(pipe: LegoLoamPipeline, course: Course, args, timing: dict, latency, device_name: str) -> dict:
@@ -385,7 +397,7 @@ def main(argv=None) -> int:
     course = build_course(args, cfg, workers=RENDER_WORKERS, log=log)
     imu = synth_imu_windows(course.poses, cfg) if args.imu else None
     odom = synth_wheel_odom(course.poses, cfg) if args.odom else None
-    pipe = LegoLoamPipeline(cfg, device=device)
+    pipe = LegoLoamPipeline(cfg, device=device, sync_free=False if args.host_step else None)
     timing = run_course(pipe, course, args.chunk, imu=imu, odom=odom, log=log, probe_at=args.probe_at)
     launches = launch_record(pipe)  # the drive's and the drain's, not the probe's
     latency = latency_probe(pipe)

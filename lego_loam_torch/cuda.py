@@ -96,24 +96,30 @@ def _stale(name: str) -> bool:
 
 def build(names=SOURCES, force: bool = False) -> dict:
     """Compile the named sources in parallel (one nvcc each). Returns each
-    source's ptxas report; raises RuntimeError if any build fails."""
+    source's ptxas report; raises RuntimeError if any build fails. Each
+    library is written to a file of this process's own and renamed into
+    place, so processes that build at once never load a half-written one."""
     BUILD.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         if not force and not _stale(name):
             continue
+        tmp = _lib_path(name).with_suffix(f".so.{os.getpid()}.tmp")
         cmd = [
             _nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-            "-Xptxas", "-v", "-o", str(_lib_path(name)), str(CSRC / f"{name}.cu"),
+            "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{name}.cu"),
         ]
-        procs[name] = subprocess.Popen(
+        procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
+        ))
     reports, failed = {}, []
-    for name, p in procs.items():
+    for name, (tmp, p) in procs.items():
         out, _ = p.communicate()
         reports[name] = out
-        if p.returncode != 0:
+        if p.returncode == 0:
+            os.replace(tmp, _lib_path(name))
+        else:
+            tmp.unlink(missing_ok=True)
             failed.append(f"{name}.cu (rc {p.returncode}):\n{out}")
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

@@ -93,18 +93,42 @@ def segment(k: int, straight: int, turn: int) -> str:
     return "turn" if (k % (straight + turn)) >= straight else "straight"
 
 
+def segments(n: int, straight: int, turn: int) -> list:
+    """(name, first frame, end frame) of each segment within n frames:
+    straight1, turn1, straight2, turn2, ... (`lap_trajectory`'s sides:
+    `straight` frames, then `turn`)."""
+    out, count, lo = [], {"straight": 0, "turn": 0}, 0
+    while lo < n:
+        kind = segment(lo, straight, turn)
+        hi = min(lo + (straight if kind == "straight" else turn), n)
+        count[kind] += 1
+        out.append((f"{kind}{count[kind]}", lo, hi))
+        lo = hi
+    return out
+
+
+def step_errors(odom, gt):
+    """The odometry's per-frame motion error |d_odom - d_gt|: entry k is
+    the step from frame k to k + 1."""
+    return np.linalg.norm(np.diff(np.asarray(odom), axis=0) - np.diff(np.asarray(gt), axis=0), axis=1)
+
+
+def segment_steps(step, lo: int, hi: int):
+    """The steps of a segment's frames lo..hi - 1 (steps from frame 1 on,
+    cut where the drive ends)."""
+    return step[max(lo, 1) : min(hi, len(step))]
+
+
 def segment_step_errors(odom, gt, straight: int, turn: int) -> dict:
-    """The odometry's per-frame motion error |d_odom - d_gt| over the first
-    straight (frames 1..straight), the first turn and the second straight,
-    each as (mean, max) in metres; a segment the drive does not reach is
-    left out, one it reaches in part is cut there."""
-    step = np.linalg.norm(np.diff(np.asarray(odom), axis=0) - np.diff(np.asarray(gt), axis=0), axis=1)
-    per = straight + turn
+    """The odometry's step errors over the first straight (frames
+    1..straight), the first turn and the second straight, each as (mean,
+    max) in metres; a segment the drive does not reach is left out, one it
+    reaches in part is cut there."""
+    step = step_errors(odom, gt)
     out = {}
-    for lo, hi, name in ((1, straight, "straight1"), (straight, per, "turn1"), (per, per + straight, "straight2")):
-        hi = min(hi, len(step))
-        if lo < hi:
-            s = step[lo:hi]
+    for name, lo, hi in segments(len(step) + 1, straight, turn)[:3]:
+        s = segment_steps(step, lo, hi)
+        if len(s):
             out[name] = (float(s.mean()), float(s.max()))
     return out
 

@@ -11,9 +11,10 @@ first frame at which the map positions and the odometry positions part by
 more than --part metres; then, segment by segment of the course (straight,
 turn, straight, ...; `lap_trajectory`'s sides), the map and odometry
 difference at the segment's last frame and its largest within it, and
-each run's mean and largest odometry step error |d_odom - d_gt| there;
-then the map error against the truth at the last frame, and each run's
-map ATE over the frames (no alignment). Imports numpy only.
+each run's mean and largest odometry step error |d_odom - d_gt| there
+(`diag_campus`'s segments and step errors); then the map error against
+the truth at the last frame, and each run's map ATE over the frames (no
+alignment).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import sys
 
 import numpy as np
 
+from .diag_campus import segment_steps, segments, step_errors
+
 
 def first_parting(a, b, limit: float) -> int | None:
     """The first frame at which |a - b| exceeds `limit`, or None."""
@@ -31,31 +34,12 @@ def first_parting(a, b, limit: float) -> int | None:
     return int(over[0]) if len(over) else None
 
 
-def segments(n: int, straight: int, turn: int):
-    """(name, first frame, last frame + 1) of each segment within n frames:
-    straight1, turn1, straight2, ... (a side is `straight` frames then
-    `turn` frames)."""
-    out, k, lo = [], {"straight": 0, "turn": 0}, 0
-    while lo < n:
-        kind = "straight" if lo % (straight + turn) < straight else "turn"
-        hi = min(lo + (straight if kind == "straight" else turn), n)
-        k[kind] += 1
-        out.append((f"{kind}{k[kind]}", lo, hi))
-        lo = hi
-    return out
-
-
-def step_errors(odom, gt):
-    """|d_odom - d_gt| of each step: entry k is frame k -> k + 1."""
-    return np.linalg.norm(np.diff(np.asarray(odom), axis=0) - np.diff(np.asarray(gt), axis=0), axis=1)
-
-
 def compare(a: dict, b: dict, straight: int, turn: int, part: float = 0.02) -> dict:
     """Runs `a` and `b` (each with est, odom and gt) over their common
     frames: the first frames past `part`, and per segment the map and
     odometry differences (at its last frame, largest within it) and each
-    run's odometry step errors (mean, largest; steps from the segment's
-    first frame, the first segment from frame 1)."""
+    run's odometry step errors (mean, largest; `segment_steps`, the rule of
+    `diag_campus.segment_step_errors`)."""
     n = min(len(a["est"]), len(b["est"]))
     gt = np.asarray(a["gt"])[:n]
     if not np.allclose(gt, np.asarray(b["gt"])[:n], atol=1e-6):
@@ -65,13 +49,13 @@ def compare(a: dict, b: dict, straight: int, turn: int, part: float = 0.02) -> d
     sa, sb = step_errors(oa, gt), step_errors(ob, gt)
     rows = []
     for name, lo, hi in segments(n, straight, turn):
-        s0 = max(lo, 1)
+        ra, rb = segment_steps(sa, lo, hi), segment_steps(sb, lo, hi)
         row = {"segment": name, "frames": [lo, hi - 1], "map_diff_end_m": float(dmap[hi - 1]),
                "map_diff_max_m": float(dmap[lo:hi].max()), "odom_diff_end_m": float(dodom[hi - 1]),
                "odom_diff_max_m": float(dodom[lo:hi].max())}
-        if s0 < hi - 1:
-            row.update(step_err_a_cm=[float(sa[s0:hi - 1].mean() * 100), float(sa[s0:hi - 1].max() * 100)],
-                       step_err_b_cm=[float(sb[s0:hi - 1].mean() * 100), float(sb[s0:hi - 1].max() * 100)])
+        if len(ra):
+            row.update(step_err_a_cm=[float(ra.mean() * 100), float(ra.max() * 100)],
+                       step_err_b_cm=[float(rb.mean() * 100), float(rb.max() * 100)])
         rows.append(row)
     return {
         "frames": n,

@@ -23,6 +23,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 import lego_loam_tpu.config as ref_config
 from lego_loam_tpu.pipeline import LegoLoamPipeline as RefPipeline
@@ -235,6 +236,43 @@ def test_main_config_and_course_match_tool(name, tmp_path):
         assert n == 20000 and n % args.chunk == 0 and our_renders[0][1]["lap_len"] == 2500
         assert m.max_keyframes == 20480 and m.max_loop_factors >= 173 and m.enable_loop_closure
         assert our_cfg.pipeline.use_imu_undistortion and our_cfg.odometry.odom_prior_mode == "init"
+
+
+@pytest.mark.parametrize("flags,offset,sync_free", [([], 0, None), (["--noise-seed", "2", "--host-step"], 200_000, False)],
+                         ids=["defaults", "noise_seed_host_step"])
+def test_noise_seed_and_host_step(flags, offset, sync_free, tmp_path):
+    """The port's main up to its pipeline, renders recorded: --noise-seed K
+    offsets every render's seed (9000 v + 100 + i) by 100,000 K and keys
+    the scan cache by K; --host-step asks the pipeline for sync_free=False.
+    Without them, the tool's seeds, its cache parameters and the default
+    step."""
+    seen = {"params": [], "seeds": [], "kw": []}
+
+    def get_or_render(tag, params, fn):
+        seen["params"].append(params)
+        return fn()
+
+    def render_swept(jobs, pool=None):
+        seen["seeds"].append([j[-1] for j in jobs])
+        return [None] * len(jobs)
+
+    def stand_in(cfg, **kw):
+        seen["kw"].append(kw)
+        raise Recorded
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(campus_run, "get_or_render", get_or_render)
+        mp.setattr(campus_run, "render_swept", render_swept)
+        mp.setattr(campus_run, "RENDER_WORKERS", 1)
+        mp.setattr(campus_run, "LegoLoamPipeline", stand_in)
+        with pytest.raises(Recorded), redirect_stdout(io.StringIO()):
+            campus_run.main(["--device", "cpu", "--laps", "1", "--straight", "3", "--turn", "1",
+                             "--render-variants", "2", *flags, "--out", str(tmp_path / "out"),
+                             "--json-out", str(tmp_path / "ours.json")])
+    lap_len = 16
+    assert seen["seeds"] == [[9000 * v + 100 + i + offset for i in range(lap_len + 1)] for v in range(2)]
+    assert [p.get("noise_seed", 0) for p in seen["params"]] == [offset // 100_000] * 2
+    assert seen["kw"] == [{"device": torch.device("cpu"), "sync_free": sync_free}]
 
 
 def test_defaults_write_no_reference_output():

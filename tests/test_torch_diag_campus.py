@@ -75,7 +75,7 @@ def test_segment_step_errors_by_hand():
     |d_odom - d_gt|; straight1 is steps 1-2, turn1 steps 3-4, straight2
     steps 5-6 (cut where the drive ends). A drive of 7 frames cuts
     straight2 to step 5, one of 5 frames turn1 to step 3 and leaves
-    straight2 out."""
+    straight2 out. `segments` names every segment of a 9-frame drive."""
     gt = np.zeros((8, 3))
     gt[:, 0] = np.arange(8)
     odom = gt.copy()
@@ -92,6 +92,8 @@ def test_segment_step_errors_by_hand():
     assert list(short) == ["straight1", "turn1"]
     np.testing.assert_allclose(short["turn1"], (0.03, 0.03))
     assert [diag_campus.segment(k, 3, 2) for k in range(6)] == ["straight"] * 3 + ["turn"] * 2 + ["straight"]
+    assert diag_campus.segments(9, 3, 2) == [("straight1", 0, 3), ("turn1", 3, 5), ("straight2", 5, 8),
+                                             ("turn2", 8, 9)]
 
 
 def test_compare_by_hand():
@@ -113,7 +115,7 @@ def test_compare_by_hand():
         ("straight1", [0, 2]), ("turn1", [3, 4]), ("straight2", [5, 7]), ("turn2", [8, 8])]
     s2 = res["segments"][2]
     np.testing.assert_allclose([s2["map_diff_end_m"], s2["map_diff_max_m"], s2["odom_diff_end_m"]], [0.04, 0.04, 0.05])
-    np.testing.assert_allclose(s2["step_err_b_cm"], [2.5, 5.0])  # steps 5 (0) and 6 (5 cm)
+    np.testing.assert_allclose(s2["step_err_b_cm"], [5 / 3, 5.0])  # steps 5 (0), 6 (5 cm) and 7 (0)
     assert s2["step_err_a_cm"] == [0.0, 0.0] and "step_err_a_cm" not in res["segments"][3]
     np.testing.assert_allclose(res["map_err_end_m"], [0.0, 0.05])
     with pytest.raises(ValueError):

@@ -71,6 +71,25 @@ def _knn_inputs(Q, T, seed, device="cpu"):
     return q, t, m
 
 
+def test_build_renames_each_library_into_place(tmp_path, monkeypatch):
+    """`cuda.build` with a stand-in compiler: a library built is written
+    to a file of its own and renamed into place (no temporary file left),
+    so processes that build at once never load a half-written one; a
+    failed build leaves neither file and raises."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\necho built > "$2"\n'
+                    'case "$3" in *cc.cu) exit 1;; esac\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(cuda, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(cuda, "BUILD", tmp_path / "_build")
+    cuda.build(("knn",), force=True)
+    assert sorted(p.name for p in (tmp_path / "_build").iterdir()) == ["libknn.so"]
+    assert (tmp_path / "_build" / "libknn.so").read_text() == "built\n"
+    with pytest.raises(RuntimeError, match="cc.cu"):
+        cuda.build(("cc",), force=True)
+    assert sorted(p.name for p in (tmp_path / "_build").iterdir()) == ["libknn.so"]
+
+
 def test_cpu_tensors_take_the_twins_and_launch_nothing():
     cuda.reset_counts()
     masks = _cc_masks(1, 0)
