@@ -1234,8 +1234,8 @@ def run_cli(truth, seq, bag, d):
     """The product entry point on the card: `python -m lego_loam_torch.run`
     over the KITTI sequence (the native feeder, with --checkpoint) and over
     the rosbag2 bag. Each exits 0 and writes pose.txt (one pose a scan,
-    finite, map ATE < 0.1 m), mapt.txt (each scan's mapping time, under
-    --profile), MapIterTimes.txt and cornerMap.pcd; both kernels launched."""
+    finite, map ATE < 0.1 m), mapt.txt (each scan's map-step device time,
+    under --profile), MapIterTimes.txt and cornerMap.pcd; both kernels launched."""
     runs = {}
     for name, args in (("kitti", ("--kitti", seq, "--checkpoint", os.path.join(d, "cli_state.npz"))),
                        ("rosbag", ("--rosbag", bag))):
@@ -1252,7 +1252,7 @@ def run_cli(truth, seq, bag, d):
         launches, sites = prof["launches"], prof["launches_by_site"]
         log(f"CLI {name}: {prof['scans']} scans in {prof['seconds']:.3f} s = {prof['scans_per_s']:.3f} scans/s "
             f"({prof['process_seconds']:.1f} s for the whole process), map ATE {ate_map:.4f} m, mapping step "
-            f"{np.median(mapt):.3f} ms median (--profile, synchronized), stages {prof['stages_mean_ms']}; "
+            f"{np.median(mapt):.3f} ms median (--profile, device time), stages {prof['stages_mean_ms']}; "
             f"launches {launches}, by site {sites}")
         if not ate_map < 0.1:
             raise AssertionError(f"CLI {name}: map ATE {ate_map:.4f} m >= 0.1 m")

@@ -3,7 +3,8 @@
 Each kernel is one source in `csrc/` with a plain C launcher. `nvcc` compiles
 it for `sm_90a` into a shared library under `_build/` (kept out of git) on
 first use, and `ctypes` loads it: no PyTorch headers, so a build takes
-seconds. `build()` starts one `nvcc` per source, all at once.
+seconds. `build()` starts one `nvcc` per source, all at once; the first
+library a process loads builds every stale source in that one call.
 
 `LAUNCHES` counts, per kernel, the launches its wrapper made; `SITES` splits
 them by caller. A wrapper adds one where it launches its kernel and nowhere
@@ -11,6 +12,10 @@ else, so a run can show that its path went through the kernels. While a
 CUDA graph is captured (`capturing`), the wrapper's count goes to the
 graph's own record instead, and every replay of the graph adds that record
 (`add`): a launch is counted each time the card runs it.
+
+The span marks (`csrc/mark.cu`, launched by `utils/profiling.span_mark`)
+are not counted in either: they do none of the pipeline's work, and every
+count read from `LAUNCHES` and `SITES` stays what the kernels alone give.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from pathlib import Path
 _ROOT = Path(__file__).resolve().parent
 CSRC = _ROOT / "csrc"
 BUILD = _ROOT / "_build"
-SOURCES = ("cc", "knn")
+SOURCES = ("cc", "knn", "mark")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -42,6 +47,9 @@ _SIGNATURES = {
     },
     "knn": {
         "knn_top5_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    },
+    "mark": {
+        "span_mark_launch": [_I, _P, _I, _P],
     },
 }
 _LIBS: dict = {}
@@ -127,11 +135,12 @@ def build(names=SOURCES, force: bool = False) -> dict:
 
 
 def library(name: str):
-    """The loaded launcher library for csrc/<name>.cu, built if needed."""
+    """The loaded launcher library for csrc/<name>.cu; where it is stale,
+    every stale source is built at once."""
     lib = _LIBS.get(name)
     if lib is None:
         if _stale(name):
-            build((name,))
+            build()
         lib = ctypes.CDLL(str(_lib_path(name)))
         for fn, args in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = args

@@ -129,7 +129,11 @@ def frontend_solve(feats: ScanFeatures, state: OdometryState, cfg: LegoLoamConfi
 
     sync_free: the branches on `state.initialized` are decided on the device
     (both sides computed, one selected, the reference's `lax.cond`): the
-    first frame solves against the empty targets and takes the identity."""
+    first frame solves against the empty targets and takes the identity.
+
+    outputs["odom_trips"]: the GN trips of both stages run while the stage
+    had not converged (an int32 device scalar; 0 on a first frame, which
+    does not solve)."""
     mode = cfg.odometry.odom_prior_mode
     initialized = state.initialized if sync_free else bool(state.initialized)
     dev = state.t_world.device
@@ -138,7 +142,8 @@ def frontend_solve(feats: ScanFeatures, state: OdometryState, cfg: LegoLoamConfi
         M_R0, M_t0 = odom_prior if odom_prior is not None and mode == "init" else (state.R_prev_cur, state.t_prev_cur)
         return two_step_odometry(feats, state.last_corner, state.last_surf, M_R0, M_t0, cfg, sync_free)
 
-    M_R, M_t = cond(initialized, solve, lambda: (torch.eye(3, device=dev), torch.zeros(3, device=dev)))
+    M_R, M_t, trips = cond(initialized, solve, lambda: (
+        torch.eye(3, device=dev), torch.zeros(3, device=dev), torch.zeros((), dtype=torch.int32, device=dev)))
     if odom_prior is not None and mode == "override":
         M_R, M_t = odom_prior
 
@@ -186,6 +191,7 @@ def frontend_solve(feats: ScanFeatures, state: OdometryState, cfg: LegoLoamConfi
         "t_world": t_world,
         "map_corner": new_corner,
         "map_surf": map_surf,
+        "odom_trips": trips,
     }
     return new_state, outputs
 

@@ -16,6 +16,9 @@ the loop makes no host read: it runs every iteration, a sticky device flag
 iteration and are kept where the pose moved (compute and select), so the
 result is the early-exit loop's bit for bit. Otherwise each iteration reads
 the two flags back and exits early, as the reference's `lax.while_loop`.
+Each stage also counts its useful trips, those run while `done` was still
+false: the early-exit loop's iteration count, in both modes alike (an int32
+device scalar).
 """
 
 from __future__ import annotations
@@ -204,7 +207,7 @@ def _gn_step(q_xyz, n, d, w, dof_idx, cfg: LegoLoamConfig):
 def _solve_stage(M_R, M_t, query, target, search_fn, fit_fn, eval_fn, dof_mask, cfg, sync_free=False):
     """GN iterations with motion-triggered correspondence refresh, then the
     stage-level trust region around the warm start. sync_free: no host
-    read (see the module docstring)."""
+    read (see the module docstring). Returns (R, t, useful trips)."""
     o = cfg.odometry
     dof_idx = tuple(i for i, on in enumerate(dof_mask) if on)
     thr = 1.0 + 2.0 * math.cos(o.refresh_rot_deg * math.pi / 180.0)
@@ -213,6 +216,9 @@ def _solve_stage(M_R, M_t, query, target, search_fn, fit_fn, eval_fn, dof_mask, 
     fit = None
     need = True  # the first iteration always searches
     done = torch.zeros((), dtype=torch.bool, device=M_t.device) if sync_free else False
+    # sync_free: the trips run after `done`, one in-place add a trip
+    wasted = torch.zeros((), dtype=torch.int32, device=M_t.device) if sync_free else None
+    trips = 0
     for _ in range(o.max_iterations):
         q_xyz = warp_points(R, t, query.xyz, query.rel_time)
 
@@ -230,7 +236,9 @@ def _solve_stage(M_R, M_t, query, target, search_fn, fit_fn, eval_fn, dof_mask, 
         moved = (torch.trace(R_ref.T @ R_new) < thr) | (
             torch.linalg.norm(t_new - t_ref) > o.refresh_trans_m
         )
+        trips += 1
         if sync_free:
+            wasted.add_(done)
             R, t = torch.where(done, R, R_new), torch.where(done, t, t_new)
             done, need = done | converged, moved
         else:
@@ -238,6 +246,7 @@ def _solve_stage(M_R, M_t, query, target, search_fn, fit_fn, eval_fn, dof_mask, 
             converged, need = torch.stack([converged, moved]).tolist()
             if converged:
                 break
+    useful = trips - wasted if sync_free else torch.full((), trips, dtype=torch.int32, device=M_t.device)
 
     dR, dt = se3.relative(M_R, M_t, R, t)
     xi = se3.log_se3(dR, dt)
@@ -247,7 +256,7 @@ def _solve_stage(M_R, M_t, query, target, search_fn, fit_fn, eval_fn, dof_mask, 
         torch.clamp(o.stage_cap_trans / torch.clamp(torch.linalg.norm(xi[3:]), min=1e-12), max=1.0),
     )
     dR_c, dt_c = se3.exp_se3(xi * s_cap)
-    return se3.compose(M_R, M_t, dR_c, dt_c)
+    return (*se3.compose(M_R, M_t, dR_c, dt_c), useful)
 
 
 SURF_DOFS = (True, True, False, False, False, True)  # roll, pitch, tz
@@ -259,15 +268,16 @@ def two_step_odometry(
     features: ScanFeatures, last_corner: FeatureCloud, last_surf: FeatureCloud,
     M_R_init, M_t_init, cfg: LegoLoamConfig, sync_free: bool = False,
 ):
-    """Full two-step solve. Returns the refined (R, t) motion estimate."""
+    """Full two-step solve. Returns the refined (R, t) motion estimate and
+    the useful GN trips of both stages (of 2 x max_iterations)."""
     o = cfg.odometry
     surf_dofs = FULL_DOFS if o.full_dof_odometry else SURF_DOFS
     corner_dofs = FULL_DOFS if o.full_dof_odometry else CORNER_DOFS
-    R, t = _solve_stage(
+    R, t, trips_surf = _solve_stage(
         M_R_init, M_t_init, features.surf_flat, last_surf,
         surf_search5, surf_fit5, surf_eval5, surf_dofs, cfg, sync_free,
     )
-    R, t = _solve_stage(
+    R, t, trips_corner = _solve_stage(
         R, t, features.corner_sharp, last_corner,
         corner_search5, corner_fit5, corner_eval5, corner_dofs, cfg, sync_free,
     )
@@ -279,7 +289,7 @@ def two_step_odometry(
         tgt = torch.clamp(sp, min=prev_sp - o.accel_cap, max=prev_sp + o.accel_cap)
         tgt = torch.where(prev_sp > 1e-6, tgt, sp)
         t = t * (tgt / torch.clamp(sp, min=1e-9))
-    return R, t
+    return R, t, trips_surf + trips_corner
 
 
 def to_scan_end(cloud: FeatureCloud, M_R, M_t) -> FeatureCloud:

@@ -21,6 +21,13 @@ map once per frame, the inputs copied in and the outputs copied out into
 in fixed buffers that every writer updates in place. A store in row blocks
 or a world of more than one rank runs the same steps without capture.
 
+Each step also marks its boundaries on the device (`span_mark`: a kernel in
+stream order, captured with the step, or the host clock on the CPU) into an
+int64 output `span`, which the per-frame logs keep with the others; the
+front step outputs its useful odometry trips as `diag.odom_trips`.
+`finalize` reads them with the logs and gives each frame's device time per
+layer in diagnostics["layer_ms"] (`layer_ms`).
+
 Loop closure keeps the reference's asynchronous schedule (see
 `_try_loop_closure`): a candidate probe after each checked chunk, read two
 checks later; an attempt program (coarse align + ICP through K2), read one
@@ -57,7 +64,6 @@ packages take the anchor-segment solve.
 from __future__ import annotations
 
 import dataclasses
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -91,7 +97,46 @@ from .ops.projection import grid_from_range_image, host_pack_range_image, projec
 from .ops.segmentation import converged_labels
 from .posegraph import Factors, anchor_stride, graph_cost, reduced_solve
 from .types import OdometryState, ScanGrid, named_leaves
-from .utils.profiling import synchronize
+from .utils.profiling import span_mark
+
+
+LAYERS = ("front_end", "odometry", "mapping", "between_steps")
+
+
+def layer_ms(prepass, chunk_len, front, maps) -> dict:
+    """Each frame's device time per layer (ms) from the steps' span marks
+    (ns, in the order the steps ran): prepass, one (front_end, step_end)
+    per chunk of chunk_len frames; front, one (front_end, odometry,
+    step_end) per frame; maps, per frame its map step's (mapping, step_end)
+    or None where the frame was not mapped.
+
+    front_end: the front step to its odometry mark, plus the chunk's
+    prepass split evenly over its frames; odometry: the odometry mark to
+    the front step's end; mapping: the map step (0 where not mapped);
+    between_steps: the gaps from each step's end to the next step's first
+    mark (input and output copies, draws, loop closure, idle), the gap
+    before a prepass split evenly over its chunk (the first step has
+    none)."""
+    out = {k: [] for k in LAYERS}
+    f, prev_end = 0, None
+    for (p0, p1), C in zip(prepass, chunk_len):
+        pre_gap = 0.0 if prev_end is None else (p0 - prev_end) / C
+        pre_share = (p1 - p0) / C
+        prev_end = p1
+        for _ in range(C):
+            a, b, e = front[f]
+            gap = pre_gap + (a - prev_end)
+            out["front_end"].append(1e-6 * (b - a + pre_share))
+            out["odometry"].append(1e-6 * (e - b))
+            prev_end = e
+            m = maps[f]
+            if m is not None:
+                gap += m[0] - prev_end
+                prev_end = m[1]
+            out["mapping"].append(0.0 if m is None else 1e-6 * (m[1] - m[0]))
+            out["between_steps"].append(1e-6 * gap)
+            f += 1
+    return out
 
 
 @dataclasses.dataclass
@@ -112,10 +157,11 @@ class LegoLoamPipeline:
     from a `torch.Generator` on the pipeline's device seeded from (seed,
     frame); tests pass the reference's draw to compare frame by frame.
 
-    profile: `process_scan` waits for the device before and after each
-    mapping step and records the wall time between in
-    diagnostics["mapping_ms"] (written to mapt.txt), as the reference's
-    profile=True does; the default path adds no wait.
+    profile: the frames that `process_scan` maps also record their map
+    step's device time in diagnostics["mapping_ms"] (written to mapt.txt),
+    as the reference's profile=True records each mapping step's time; the
+    chunk path's mapped frames always do. Neither adds a wait: the times
+    come from the steps' span marks, read at `finalize`.
 
     sync_free: the frame steps decide every branch on the device and read
     nothing back (default: on a CUDA device). graphs: they are captured as
@@ -158,16 +204,15 @@ class LegoLoamPipeline:
         self._use_odom = cfg.odometry.odom_prior_mode != "off"
         self._last_odom = None  # host (R, t) of the latest wheel-odometry pose
         self._stop_requested = False
-        self._log = {k: [] for k in ("odom_t", "fused_t", "map_R", "map_t", "map_time")}
+        # Per frame: poses, span marks (front; map, None where not mapped),
+        # useful odometry trips and whether its map step goes to mapping_ms
+        # ("timed"); per mapped frame: map poses and times; per chunk: the
+        # prepass's marks and the chunk's length.
+        self._log = {k: [] for k in ("odom_t", "fused_t", "map_R", "map_t", "map_time", "front_span", "map_span",
+                                     "odom_trips", "timed", "prepass_span", "chunk_len")}
         self._diags: list[MapDiag] = []
-        # mapping_ms: per mapped frame, the wall time between successive
-        # process_chunk calls over the previous chunk's mapped frames (the
-        # first gap, which includes first use, is dropped), as the
-        # reference's chunk path fills mapt.txt
-        self.diagnostics = {"mapping_ms": [], "iterations": [], "records": []}
-        self._chunk_t_prev = None
-        self._chunk_mapped_prev = 0
-        self._chunks_timed = 0
+        # mapping_ms: per timed mapped frame, its map step's device time
+        self.diagnostics = {"mapping_ms": [], "iterations": [], "records": [], "layer_ms": {}, "odom_trips": []}
         # global map, every global_map_every_n_frames mapped frames
         self.latest_global_map = None
         self.global_map_count = 0
@@ -309,22 +354,31 @@ class LegoLoamPipeline:
     def _prepass_step(self, x) -> dict:
         """The chunk's grids (range image or projection) grounded with the
         scores drawn for each scan, their connected components in one K1
-        launch, and the IMU tracks: (C, ...) outputs."""
+        launch, and the IMU tracks: (C, ...) outputs, and the step's marks
+        (front_end, step_end) as `span`."""
         cfg = self.cfg
+        span = torch.empty(2, dtype=torch.int64, device=self.device)
+        span_mark(span, 0, "front_end")
         grids = [apply_ground(self._grid(x, c), cfg, x["scores"][c]) for c in range(x["scores"].shape[0])]
         out = {f"grid.{f.name}": torch.stack([getattr(g, f.name) for g in grids]) for f in dataclasses.fields(ScanGrid)}
         out["raw"], _ = converged_labels(ScanGrid(**{k[5:]: v for k, v in out.items()}), cfg)
         if self._use_imu:  # all C windows at once
             track = integrate_imu(x["imu.t"], x["imu.rpy"], x["imu.acc"], mask=x["imu.mask"])
             out.update({f"imu.{f.name}": getattr(track, f.name) for f in dataclasses.fields(ImuTrack)})
+        out["span"] = span
+        span_mark(span, 1, "step_end")
         return out
 
     def _front_step(self, x) -> dict:
         """One frame's segmentation, features (undistorted with its IMU
         track), scan-to-scan solve (seeded by its wheel-odometry prior), the
         deskew of its map clouds and its fused pose; the odometry state is
-        written in place."""
+        written in place. Its marks (`span`): front_end, odometry (before
+        the solve, so that span holds the solve, the fusion and the deskew)
+        and step_end."""
         cfg = self.cfg
+        span = torch.empty(3, dtype=torch.int64, device=self.device)
+        span_mark(span, 0, "front_end")
         grid = ScanGrid(**{f.name: x[f"grid.{f.name}"] for f in dataclasses.fields(ScanGrid)})
         track = ImuTrack(**{f.name: x[f"imu.{f.name}"] for f in dataclasses.fields(ImuTrack)}) if self._use_imu else None
         prior = None
@@ -333,32 +387,42 @@ class LegoLoamPipeline:
                                       x["odom_R"], x["odom_t"], cfg.odometry.odom_lever_arm)
         _grid, seg, feats = segment_features(grid, cfg, x["raw"], track)
         imu_att = imu_attitude(track) if track is not None else None
+        span_mark(span, 1, "odometry")
         new_state, out = frontend_solve(feats, self.fstate, cfg, prior, imu_att, sync_free=self.sync_free)
         bs = self.bstate
         # Fused pose from the latest *available* map pose (one frame
         # stale, as the reference's asynchronous fusion node).
         Rf, tf = fuse_pose(bs.R_map, bs.t_map, bs.R_odom, bs.t_odom, out["R_world"], out["t_world"])
         assign_state(self.fstate, new_state)
-        return {
+        res = {
             "R_odom": out["R_world"], "t_odom": out["t_world"], "R_fused": Rf, "t_fused": tf,
             "corner": out["map_corner"].xyz, "corner_mask": out["map_corner"].mask,
             "surf": out["map_surf"].xyz, "surf_mask": out["map_surf"].mask,
             "outlier": deskew_outliers(seg, out["M_R_avg"], out["M_t_avg"], cfg), "outlier_mask": seg.outlier_mask,
+            "diag.odom_trips": out["odom_trips"], "span": span,
         }
+        span_mark(span, 2, "step_end")
+        return res
 
     def _map_step(self, x) -> dict:
         """One mapped frame: its clouds downsampled, registered to the
         submap and appended as a keyframe; the back-end state is written in
-        place."""
+        place. Its marks (`span`): mapping, step_end."""
         cfg = self.cfg
+        span = torch.empty(2, dtype=torch.int64, device=self.device)
+        span_mark(span, 0, "mapping")
         ds = downsample_clouds(x["corner"], x["corner_mask"], x["surf"], x["surf_mask"], x["outlier"],
                                x["outlier_mask"], cfg)
         new_state, (R_map, t_map), diag = backend_step_ds(
             self.bstate, *ds, x["R_odom"], x["t_odom"], x["time"], cfg, sync_free=self.sync_free
         )
         assign_state(self.bstate, new_state)
-        return {"R_map": R_map, "t_map": t_map, **{f"diag.{k}": v for k, v in diag._asdict().items()}}
+        res = {"R_map": R_map, "t_map": t_map, "span": span, **{f"diag.{k}": v for k, v in diag._asdict().items()}}
+        span_mark(span, 1, "step_end")
+        return res
 
+    # the front step's outputs that the logs keep
+    _FRONT_KEPT = ("R_odom", "t_odom", "R_fused", "t_fused", "span", "diag.odom_trips")
     _MAP_INPUTS = ("corner", "corner_mask", "surf", "surf_mask", "outlier", "outlier_mask", "R_odom", "t_odom")
 
     def _capturable(self) -> bool:
@@ -374,16 +438,16 @@ class LegoLoamPipeline:
             return fn(x)
         return self._graphs.run(kind, key, fn, x, (self.fstate, self.bstate))
 
-    def _frames(self, xs, kf_ts, log_ts, odom_prev=None, timed=False):
+    def _frames(self, xs, kf_ts, log_ts, odom_prev=None):
         """Run the staged scans of `xs` as frames frame_idx, frame_idx+1, ...
         (frame_idx itself is left to the caller). kf_ts: (C,) device tensor
         of the times stored with keyframes; log_ts: the times logged per
         mapped frame (floats, or the same device tensor); odom_prev: the
         wheel-odometry pose (device R, t) before the chunk's first scan,
-        with the prior on; timed: record each mapping step's wall time,
-        the device synchronized before and after it. The outputs go into
-        (C, ...) buffers, the counterpart of the reference's scan outputs,
-        which the logs keep. Returns the last frame's poses."""
+        with the prior on. The outputs go into (C, ...) buffers, the
+        counterpart of the reference's scan outputs, which the logs keep
+        with the steps' span marks and the useful trips. Returns the last
+        frame's poses."""
         cfg = self.cfg
         C = int(xs["rimg" if "rimg" in xs else "pts"].shape[0])
         f0 = self.frame_idx
@@ -396,6 +460,9 @@ class LegoLoamPipeline:
         if self._use_imu:
             x.update({f"imu.{k}": v for k, v in xs["imu"].items()})
         pre = self._step("prepass", (feed[0], str(x[feed[0]].dtype), C, self._use_imu), self._prepass_step, x)
+        # a copy: a graph's output buffer is overwritten by the next chunk's prepass
+        self._log["prepass_span"].append(pre["span"].clone())
+        self._log["chunk_len"].append(C)
 
         div = cfg.mapping.mapping_frequency_divider
         mapped = [c for c in range(C) if (f0 + c) % div == 0]
@@ -408,28 +475,25 @@ class LegoLoamPipeline:
                 buf[k][i].copy_(v)
 
         for c in range(C):
-            x = {k: v[c] for k, v in pre.items()}
+            x = {k: v[c] for k, v in pre.items() if k != "span"}
             if self._use_odom:
                 cur = (xs["odom_R"][c], xs["odom_t"][c])
                 x["odom_prev_R"], x["odom_prev_t"] = odom_prev
                 x["odom_R"], x["odom_t"] = cur
                 odom_prev = cur
             out = self._step("front", (self._use_imu, self._use_odom), self._front_step, x)
-            keep(front_buf, C, c, {k: out[k] for k in ("R_odom", "t_odom", "R_fused", "t_fused")})
+            keep(front_buf, C, c, {k: out[k] for k in self._FRONT_KEPT})
             if c in mapped:
                 y = {k: out[k] for k in self._MAP_INPUTS}
                 y["time"] = kf_ts[c]
-                if timed:
-                    synchronize(out["t_odom"])
-                    t0 = time.perf_counter()
                 res = self._step("map", (), self._map_step, y)
-                if timed:
-                    synchronize(res["t_map"])
-                    self.diagnostics["mapping_ms"].append((time.perf_counter() - t0) * 1e3)
                 keep(map_buf, len(mapped), mapped.index(c), res)
 
         self._log["odom_t"].extend(front_buf["t_odom"].unbind(0))
         self._log["fused_t"].extend(front_buf["t_fused"].unbind(0))
+        self._log["front_span"].extend(front_buf["span"].unbind(0))
+        self._log["odom_trips"].extend(front_buf["diag.odom_trips"].unbind(0))
+        self._log["map_span"].extend(map_buf["span"][mapped.index(c)] if c in mapped else None for c in range(C))
         for i, c in enumerate(mapped):
             self._log["map_R"].append(map_buf["R_map"][i])
             self._log["map_t"].append(map_buf["t_map"][i])
@@ -466,13 +530,6 @@ class LegoLoamPipeline:
             prev = self._last_odom if self._last_odom is not None else (R[0], t[0])
             odom_prev = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in prev)
             self._last_odom = (R[-1], t[-1])
-        now = time.perf_counter()
-        if self._chunk_t_prev is not None and self._chunk_mapped_prev:
-            self._chunks_timed += 1
-            if self._chunks_timed > 1:
-                per = (now - self._chunk_t_prev) * 1e3 / self._chunk_mapped_prev
-                self.diagnostics["mapping_ms"].extend([per] * self._chunk_mapped_prev)
-        self._chunk_t_prev = now
         if "ts" in xs:
             kf_ts = log_ts = xs["ts"]
         else:
@@ -482,6 +539,7 @@ class LegoLoamPipeline:
             kf_ts = torch.arange(self.frame_idx, self.frame_idx + C, dtype=torch.float32, device=self.device) * period
             log_ts = (frames * cfg.laser.scan_period).astype(np.float32)
         self._frames(xs, kf_ts, log_ts, odom_prev)
+        self._log["timed"].extend([True] * C)
         f0 = self.frame_idx
         self.frame_idx += C
 
@@ -492,8 +550,7 @@ class LegoLoamPipeline:
             self._linfo_q.append(self._loopinfo_probe())
             self._try_loop_closure()
         div = cfg.mapping.mapping_frequency_divider
-        self._chunk_mapped_prev = sum(1 for f in range(f0, f0 + C) if f % div == 0)
-        self._mapped_frames += self._chunk_mapped_prev
+        self._mapped_frames += sum(1 for f in range(f0, f0 + C) if f % div == 0)
         self._maybe_publish_global_map()
 
     def _pack_imu(self, imu_samples):
@@ -547,7 +604,8 @@ class LegoLoamPipeline:
             kw["odom"] = (od["R_cur"][None], od["t_cur"][None])
             odom_prev = tuple(torch.from_numpy(np.ascontiguousarray(od[k])).to(self.device) for k in ("R_prev", "t_prev"))
         xs = self.stage_chunk(self._pack_points([points]), timestamps=[t_scan], **kw)
-        out = self._frames(xs, xs["ts"], [t_scan], odom_prev, timed=self.profile)
+        out = self._frames(xs, xs["ts"], [t_scan], odom_prev)
+        self._log["timed"].append(self.profile)
         if self.frame_idx % cfg.mapping.mapping_frequency_divider == 0:
             if (
                 cfg.mapping.enable_loop_closure
@@ -638,7 +696,9 @@ class LegoLoamPipeline:
 
     def finalize(self):
         """Drain loop closure, then pull the per-frame logs to the host in
-        one pass."""
+        one pass: poses, map diagnostics, and the steps' span marks and
+        useful odometry trips (diagnostics["layer_ms"], "odom_trips" and
+        "mapping_ms")."""
         if self._finalized:
             return
         self._drain_loop_closure()
@@ -680,7 +740,29 @@ class LegoLoamPipeline:
                 }
                 for k in range(len(self._diags))
             ]
+        if self._log["front_span"]:
+            self._read_spans()
         self._finalized = True
+
+    def _read_spans(self):
+        """The logged span marks and trips in one read, as per-frame layer
+        times (`layer_ms`), trips, and the timed mapped frames' map-step
+        times."""
+        log = self._log
+        maps = [m for m in log["map_span"] if m is not None]
+        parts = [torch.stack(log["prepass_span"]), torch.stack(log["front_span"]),
+                 torch.stack(maps) if maps else torch.zeros((0, 2), dtype=torch.int64, device=self.device),
+                 torch.stack(log["odom_trips"]).to(torch.int64)]
+        host = torch.cat([p.to(self.device).reshape(-1) for p in parts]).cpu().split([p.numel() for p in parts])
+        pre, front, mapped, trips = (h.reshape(p.shape).tolist() for h, p in zip(host, parts))
+        it = iter(mapped)
+        per_frame_maps = [None if m is None else next(it) for m in log["map_span"]]
+        layers = layer_ms(pre, log["chunk_len"], front, per_frame_maps)
+        self.diagnostics["layer_ms"] = layers
+        self.diagnostics["odom_trips"] = trips
+        self.diagnostics["mapping_ms"] = [
+            ms for ms, m, timed in zip(layers["mapping"], per_frame_maps, log["timed"]) if m is not None and timed
+        ]
 
     def save_artifacts(self, out_dir: str):
         """Finalize, then write the reference's run artifacts (pose.txt,
@@ -766,8 +848,11 @@ class LegoLoamPipeline:
         """One loop-closure check, the reference's asynchronous schedule
         (a check is one call of this; `draining` handles everything at once):
 
-        1. The candidate probe queued at the check before last is read (a
-           4-float read of a result long finished); at most the two newest
+        1. The candidate probe queued at the check before last is read: 4
+           floats, but `.tolist()` on the compute stream waits for all the
+           work queued on it, the chunk just dispatched included (the gap
+           before the next chunk's prepass in diagnostics["layer_ms"]
+           ["between_steps"] holds that wait); at most the two newest
            probes stay queued.
         2. A candidate within `history_keyframe_search_radius`, outside the
            attempt cooldown and with no attempt in flight, dispatches an

@@ -23,9 +23,11 @@ checkpoint.
 
 Writes the reference-parity artifact set (pose.txt, mapt.txt,
 MapIterTimes.txt, LocalInfo.txt) plus the map PCDs to --out; with
---profile also each scan's mapping time (mapt.txt), a per-stage report and
-profile.json (stage means, scans/s and the CUDA kernels' launch counts of
-the run).
+--profile also each mapped scan's map-step device time (mapt.txt), a
+per-stage report and profile.json (stage means, scans/s, the CUDA kernels'
+launch counts of the run, the device time a scan of each layer from the
+frame steps' span marks, and the odometry's useful GN trips against those
+attempted).
 """
 
 from __future__ import annotations
@@ -200,20 +202,33 @@ def _frames(stream, max_frames, timer):
         stream.close()
 
 
-def _write_profile(out_dir, timer, n, dt, device):
+def _write_profile(out_dir, timer, n, dt, device, pipe=None):
     """profile.json: per-stage mean ms, scans/s and the CUDA kernels'
-    launches (by kernel and by call site) of this run (written by rank 0)."""
+    launches (by kernel and by call site) of this run and, from a finalized
+    pipeline, its frames' mean device time a scan per layer
+    (`device_ms_per_scan`, the steps' span marks) and useful odometry
+    trips a scan against the attempted 2 x max_iterations
+    (`odometry_trips`); written by rank 0."""
     prof = {
         "scans": n, "seconds": dt, "scans_per_s": n / max(dt, 1e-9),
         "stages_mean_ms": {k: timer.mean_ms(k) for k in sorted(timer.totals)},
         "launches": dict(kcuda.LAUNCHES), "launches_by_site": dict(kcuda.SITES),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
     }
+    lines = [timer.report()]
+    if pipe is not None and pipe.diagnostics["odom_trips"]:
+        layers, trips = pipe.diagnostics["layer_ms"], pipe.diagnostics["odom_trips"]
+        prof["device_ms_per_scan"] = {k: float(np.mean(v)) for k, v in layers.items()}
+        prof["odometry_trips"] = {"useful_mean": float(np.mean(trips)),
+                                  "attempted": 2 * pipe.cfg.odometry.max_iterations}
+        lines += [f"{'device ' + k:>24s}: {v:8.2f} ms/scan" for k, v in prof["device_ms_per_scan"].items()]
+        lines.append(f"{'odometry trips':>24s}: {prof['odometry_trips']['useful_mean']:8.2f} useful of "
+                     f"{prof['odometry_trips']['attempted']} a scan")
     if is_writer():
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "profile.json"), "w") as f:
             json.dump(prof, f, indent=1)
-    print(timer.report())
+    print("\n".join(lines))
     print(f"kernel launches {prof['launches']}, by site {prof['launches_by_site']}")
 
 
@@ -288,7 +303,8 @@ def _run(args, device):
     dt = time.perf_counter() - t0
     print(f"processed {n} scans in {dt:.3f} s ({n / max(dt, 1e-9):.3f} scans/s)")
     if args.profile:
-        _write_profile(args.out, timer, n, dt, device)
+        pipe.finalize()
+        _write_profile(args.out, timer, n, dt, device, pipe)
 
     pipe.save_artifacts(args.out)
     from .mapproducts import save_map

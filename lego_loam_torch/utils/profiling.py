@@ -4,18 +4,24 @@
 ≙ the reference's hand-rolled chrono instrumentation (`TicToc`
 include/lego_loam/tictoc.h:12-59; per-stage running means
 imageProjection.cpp:200-221, featureAssociation.cpp:2798-2816,
-mapOptmization.cpp:1877-1908) plus a torch.profiler hook for device traces.
+mapOptmization.cpp:1877-1908), and the span marks that the frame steps
+take on the device (`span_mark`).
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
 import time
 from collections import defaultdict
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
+
+from .. import cuda
+
+# The step boundaries a mark records, in the order of `csrc/mark.cu`'s
+# kernels (lego_span_<boundary>).
+BOUNDARIES = ("front_end", "odometry", "mapping", "step_end")
 
 
 def synchronize(t):
@@ -23,6 +29,20 @@ def synchronize(t):
     tensor, whose values are ready when it is returned)."""
     if isinstance(t, torch.Tensor) and t.device.type == "cuda":
         torch.cuda.synchronize(t.device)
+
+
+def span_mark(out, slot: int, boundary: str):
+    """Write the time at `boundary` (one of BOUNDARIES) into out[slot], an
+    int64 tensor, in nanoseconds. On a CUDA device it is a kernel queued in
+    stream order (the card's %globaltimer where it runs, also inside a
+    captured graph, at every replay; no host read); on the CPU, which runs
+    each operation when it is called, the host's `perf_counter_ns`."""
+    if out.device.type != "cuda":
+        out[slot] = time.perf_counter_ns()
+        return
+    err = cuda.library("mark").span_mark_launch(BOUNDARIES.index(boundary), out.data_ptr(), slot,
+                                               cuda.stream_ptr(out.device))
+    cuda.check(err, f"span mark {boundary} launch")
 
 
 class StageTimer:
@@ -63,23 +83,3 @@ class StageTimer:
                 f"({self.hz(name):7.1f} Hz, n={self.counts[name]})"
             )
         return "\n".join(lines)
-
-
-@contextlib.contextmanager
-def device_trace(log_dir: Optional[str]):
-    """torch.profiler over a region (the CPU, and the GPU where one is
-    visible), written as a Chrome trace `trace.json` into log_dir (view it
-    in chrome://tracing or Perfetto). Yields the profiler, or None without
-    log_dir."""
-    if not log_dir:
-        yield None
-        return
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
-        yield prof
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

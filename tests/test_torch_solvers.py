@@ -89,12 +89,13 @@ def test_two_step_odometry(two_scans):
     feats, state, _ = two_scans
     f = feats[2][1]
     R, tt = RO.two_step_odometry(f, state.last_corner, state.last_surf, state.R_prev_cur, state.t_prev_cur, REF)
-    pR, pt = PO.two_step_odometry(
+    pR, pt, trips = PO.two_step_odometry(
         port(f, ScanFeatures), port(state.last_corner, FeatureCloud), port(state.last_surf, FeatureCloud),
         t(state.R_prev_cur), t(state.t_prev_cur), CFG,
     )
     np.testing.assert_allclose(np.asarray(tt), pt.numpy(), atol=1e-3)
     np.testing.assert_allclose(np.asarray(R), pR.numpy(), atol=2e-4)
+    assert trips.dtype == torch.int32 and 2 <= int(trips) <= 2 * CFG.odometry.max_iterations
     to_end = PO.to_scan_end(port(f.corner_less_sharp, FeatureCloud), pR, pt)
     ref_end = np.asarray(RO.to_scan_end(f.corner_less_sharp, R, tt).xyz)
     # the pose tolerance carried to each point: 1 mm + 2e-4 rad x range
