@@ -19,6 +19,13 @@ Phases, each printing a progress line:
      same way, the clouds of one real call at each of the four call sites,
      recorded in the slice's warm-up run (these clouds are ordered along
      the scan, unlike the random ones);
+  4b. the odometry's trip kernel (`csrc/odo.cu`) against its plain twin on
+     the clouds of frames 1-3 of the slice (recorded from the per-scan
+     path, eager, host-branching), both stages: the fit cache bit-equal to
+     the twin's on the same K2 lists, the same useful trips, poses within
+     2e-5; then, at the main path's shapes, a trip alone and per call (a
+     trip that refits, the worst case), its byte bound, and one stage of
+     20 trips graphed against the twin's stage graphed;
   5. the slice: `vlp16()` at full width over 32 swept scans of a straight
      drive through `LegoLoamPipeline.run_chunked`, its frame steps captured
      as CUDA graphs (the default): map ATE < 0.1 m, every output finite,
@@ -515,6 +522,120 @@ def check_k2(dev):
             knn_case(name + " groups=16", q, t, m, groups=16)
         shapes[name] = (q, t, m, err)
     return shapes
+
+
+def odo_frames(cfg, scans, dev, n=3):
+    """The inputs of `two_step_odometry` on frames 1..n of `scans`, recorded
+    from the per-scan path on the card (eager, host-branching), loop closure
+    off."""
+    from lego_loam_torch import frontend
+    from lego_loam_torch.pipeline import LegoLoamPipeline
+
+    cfg = dataclasses.replace(
+        cfg, mapping=dataclasses.replace(cfg.mapping, enable_loop_closure=False, max_keyframes=32),
+        distributed=dataclasses.replace(cfg.distributed, shard_backend=False, use_sharded_posegraph=False))
+    rec, orig = [], frontend.two_step_odometry
+
+    def copy(x):
+        return x.clone() if isinstance(x, torch.Tensor) else type(x)(**{
+            f.name: copy(getattr(x, f.name)) for f in dataclasses.fields(x)})
+
+    def recording(*args):  # the state is written in place: keep copies
+        rec.append(tuple(copy(x) for x in args[:5]))
+        return orig(*args)
+
+    frontend.two_step_odometry = recording
+    try:
+        LegoLoamPipeline(cfg, device=dev, sync_free=False, graphs=False).run(list(scans[: n + 1]))
+    finally:
+        frontend.two_step_odometry = orig
+    return cfg, rec
+
+
+def graph_of(fn):
+    """`fn` captured as a CUDA graph (after a warm call on a side stream)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return g
+
+
+def check_odo_trip(cfg, scans, dev):
+    """Phase 4b: the trip kernel against its twin on real frames, then its
+    times at the main path's shapes. Returns the kernel table's record."""
+    from lego_loam_torch import odometry as O
+    from lego_loam_torch.ops.knn import top5_l2
+
+    cfg, rec = odo_frames(cfg, scans, dev)
+    o = cfg.odometry
+    stages = {"surf": (O.SURF_DOFS, lambda f: f[0].surf_flat, lambda f: f[2]),
+              "corner": (O.CORNER_DOFS, lambda f: f[0].corner_sharp, lambda f: f[1])}
+    worst, shapes = 0.0, {}
+    for kind, (dofs, query_of, target_of) in stages.items():
+        _, fit_fn, _ = O._STAGES[kind]
+        for f in rec:
+            query, target, M_R, M_t = query_of(f), target_of(f), f[3], f[4]
+            stage = O._OdoStage(M_R, M_t, query, target, kind, dofs, cfg)
+            idx, d5 = top5_l2(stage.qw, target.xyz, target.mask)
+            stage.trip(idx, d5)
+            max_d = o.corner_nn_max_dist if kind == "corner" else o.surf_nn_max_dist
+            ok = query.mask & (d5[:, 4] < max_d ** 2)
+            fit = fit_fn(target.xyz[idx.clamp(min=0).long()], ok)
+            if kind == "corner":
+                want, want_ok = torch.stack(fit[:6], 1), fit[7] & (fit[6] > o.corner_line_ratio)
+            else:
+                want, want_ok = torch.stack(fit[:4], 1), fit[5] & (fit[4] < o.surf_plane_tol)
+                if o.surf_normal_min_z > 0:
+                    want_ok = want_ok & (fit[2].abs() >= o.surf_normal_min_z)
+            got_ok = stage.fit[:, 7] != 0
+            if not (torch.equal(got_ok, want_ok) and torch.equal(stage.fit[:, :want.shape[1]][want_ok], want[want_ok])):
+                raise AssertionError(f"odo_trip {kind}: the fit cache differs from the twin's")
+            R, t, trips = O._solve_stage_cuda(M_R, M_t, query, target, kind, dofs, cfg, False)
+            Rp, tp, tripsp = O._solve_stage_plain(M_R, M_t, query, target, kind, dofs, cfg, False)
+            gap = max(float((R - Rp).abs().max()), float((t - tp).abs().max()))
+            if int(trips) != int(tripsp) or gap > 2e-5:  # tests/test_torch_odo_trip.py says why
+                raise AssertionError(f"odo_trip {kind}: {int(trips)} trips and {int(tripsp)} for the twin, "
+                                     f"pose gap {gap:.3g}")
+            worst = max(worst, gap)
+        shapes[kind] = (query, target, M_R, M_t, dofs)
+    log(f"odo_trip: fit caches bit-equal to the twin's, trips equal, largest pose gap {worst:.3g} "
+        f"over {len(rec)} frames x 2 stages")
+    rows = []
+    # every trip refits: never converged, any motion triggers the search
+    refit = dataclasses.replace(cfg, odometry=dataclasses.replace(o, rot_converge_deg=0.0, refresh_trans_m=0.0))
+    for kind, (query, target, M_R, M_t, dofs) in shapes.items():
+        Q, T = query.xyz.shape[0], target.xyz.shape[0]
+        stage = O._OdoStage(M_R, M_t, query, target, kind, dofs, refit)
+        idx, d5 = top5_l2(stage.qw, target.xyz, target.mask)
+        ms = time_ms(lambda: stage.trip(idx, d5))
+        dev_ms = kernel_ms(lambda: stage.trip(idx, d5))
+        # a point: query xyz, time and mask, K2's lists, five neighbours and the
+        # warped query read; the fit cache and the warped query written
+        byts = Q * (12 + 4 + 1 + 20 + 20 + 60 + 12 + 4 * O._FIT + 12)
+        bound = byts / HBM_BYTES_PER_S * 1e3
+        kern = graph_of(lambda: O._solve_stage_cuda(M_R, M_t, query, target, kind, dofs, cfg, True))
+        twin = graph_of(lambda: O._solve_stage_plain(M_R, M_t, query, target, kind, dofs, cfg, True))
+        stage_ms = kernel_ms(kern.replay)
+        twin_ms = kernel_ms(twin.replay)
+        n = o.max_iterations
+        rows.append({"shape": kind, "Q": Q, "T": T, "ms": ms, "device_ms": dev_ms, "bound_ms": bound,
+                     "bound_by": "bytes", "bound_share": bound / dev_ms, "stage_graph_ms": stage_ms,
+                     "twin_stage_graph_ms": twin_ms, "plain_ms": twin_ms / n})
+        log(f"odo_trip {kind} Q={Q} T={T}: a refitting trip {ms:.4f} ms a call, kernel alone {dev_ms:.4f} ms, "
+            f"bound {bound:.5f} ms (bytes), {100 * bound / dev_ms:.2f}% of bound; a stage of {n} trips graphed "
+            f"{stage_ms:.4f} ms ({stage_ms / n:.4f} a trip with K2), the twin's {twin_ms:.4f} ms "
+            f"({twin_ms / n:.4f} a trip)")
+    surf = rows[0]
+    return {"name": "odo_trip", "route": "cuda", "source": "lego_loam_torch/csrc/odo.cu",
+            "replaces": "none: fuses the odometry's eager trip arithmetic", "max_abs_err": worst,
+            "ms": surf["ms"], "device_ms": surf["device_ms"], "plain_ms": surf["plain_ms"],
+            "bound_ms": surf["bound_ms"], "bound_by": "bytes", "bound_share": surf["bound_share"],
+            "library_ms": None, "shapes": rows}
 
 
 def ate(est, gt):
@@ -2240,6 +2361,8 @@ def main() -> int:
         presets[name] = (pcfg, pgt, pscans)
     shapes = check_k2(dev)
     elapsed("1-4")
+    odo_record = check_odo_trip(cfg, scans, dev)
+    elapsed("4b")
     summary, launches, map_call, slice_poses = run_slice(cfg, scans, gt)
     dist_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dist_")
     dd = dist_tmp.name
@@ -2401,6 +2524,9 @@ def main() -> int:
         "bound_share": big["bound_share"],
         "shapes": per_shape, "blocks": blocks,
     })
+    odo_record["launches_by_path"] = {p: sum(v for k, v in (summary[p] if p != "slice" else summary)[
+        "launches_by_site"].items() if k.startswith("odo_trip@")) for p in PATHS}
+    records.append(odo_record)
     prof = summary["profile"]
     busy = {m: "not measured" if p["device_busy"] is None else f"{100 * p['device_busy']:.1f}%" for m, p in prof.items()}
     log(f"graphs: slice {summary['graphs']}, lap continuation {summary['lap_continuation']['graphed']['graphs']}; "

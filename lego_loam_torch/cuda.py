@@ -4,7 +4,8 @@ Each kernel is one source in `csrc/` with a plain C launcher. `nvcc` compiles
 it for `sm_90a` into a shared library under `_build/` (kept out of git) on
 first use, and `ctypes` loads it: no PyTorch headers, so a build takes
 seconds. `build()` starts one `nvcc` per source, all at once; the first
-library a process loads builds every stale source in that one call.
+library a process loads builds every stale source in that one call. A
+source may add flags of its own (`FLAGS`).
 
 `LAUNCHES` counts, per kernel, the launches its wrapper made; `SITES` splits
 them by caller. A wrapper adds one where it launches its kernel and nowhere
@@ -31,8 +32,10 @@ from pathlib import Path
 _ROOT = Path(__file__).resolve().parent
 CSRC = _ROOT / "csrc"
 BUILD = _ROOT / "_build"
-SOURCES = ("cc", "knn", "mark")
+SOURCES = ("cc", "knn", "mark", "odo")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+# odo.cu repeats PyTorch's separately rounded float operations: no multiply-add contraction
+FLAGS = {"odo": ("--fmad=false",)}
 
 LAUNCHES: collections.Counter = collections.Counter()
 SITES: collections.Counter = collections.Counter()
@@ -50,6 +53,11 @@ _SIGNATURES = {
     },
     "mark": {
         "span_mark_launch": [_I, _P, _I, _P],
+    },
+    "odo": {
+        "odo_begin_launch": [_P, _P, _P, _P, _I, _P, _P, _P, _P],
+        "odo_trip_launch": [_I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+        "odo_end_launch": [_P, _P, _P],
     },
 }
 _LIBS: dict = {}
@@ -114,7 +122,7 @@ def build(names=SOURCES, force: bool = False) -> dict:
             continue
         tmp = _lib_path(name).with_suffix(f".so.{os.getpid()}.tmp")
         cmd = [
-            _nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            _nvcc(), ARCH, "-std=c++17", "-O3", *FLAGS.get(name, ()), "-shared", "-Xcompiler", "-fPIC",
             "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{name}.cu"),
         ]
         procs[name] = (tmp, subprocess.Popen(

@@ -19,14 +19,23 @@ the two flags back and exits early, as the reference's `lax.while_loop`.
 Each stage also counts its useful trips, those run while `done` was still
 false: the early-exit loop's iteration count, in both modes alike (an int32
 device scalar).
+
+On CUDA tensors a stage runs as hand-written kernels (`csrc/odo.cu`): a
+prologue that warps the query by the warm start, then per trip K2 and one
+launch of the trip kernel (fit where `need`, residuals and weights, normal
+equations, the float64 eigenproblem, the step, the flags, the next warp),
+then an epilogue with the stage-level cap; `need` and `done` stay on the
+device. On CPU tensors it runs `_solve_stage_plain`, the kernel's twin.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
+from . import cuda
 from .config import LegoLoamConfig
 from .control import cond
 from .math import se3
@@ -204,10 +213,26 @@ def _gn_step(q_xyz, n, d, w, dof_idx, cfg: LegoLoamConfig):
     return delta, torch.linalg.norm(delta[:3]) * 180.0 / math.pi, torch.linalg.norm(delta[3:]) * 100.0
 
 
-def _solve_stage(M_R, M_t, query, target, search_fn, fit_fn, eval_fn, dof_mask, cfg, sync_free=False):
+_STAGES = {
+    "surf": (surf_search5, surf_fit5, surf_eval5),
+    "corner": (corner_search5, corner_fit5, corner_eval5),
+}
+
+
+def _solve_stage(M_R, M_t, query, target, kind, dof_mask, cfg, sync_free=False):
     """GN iterations with motion-triggered correspondence refresh, then the
-    stage-level trust region around the warm start. sync_free: no host
-    read (see the module docstring). Returns (R, t, useful trips)."""
+    stage-level trust region around the warm start; kind: "surf" or
+    "corner". sync_free: no host read (see the module docstring). Returns
+    (R, t, useful trips). CUDA tensors run the trip kernel, CPU tensors
+    the plain twin."""
+    if query.xyz.device.type == "cuda":
+        return _solve_stage_cuda(M_R, M_t, query, target, kind, dof_mask, cfg, sync_free)
+    return _solve_stage_plain(M_R, M_t, query, target, kind, dof_mask, cfg, sync_free)
+
+
+def _solve_stage_plain(M_R, M_t, query, target, kind, dof_mask, cfg, sync_free=False):
+    """The plain PyTorch twin of the trip kernel's stage, on any device."""
+    search_fn, fit_fn, eval_fn = _STAGES[kind]
     o = cfg.odometry
     dof_idx = tuple(i for i, on in enumerate(dof_mask) if on)
     thr = 1.0 + 2.0 * math.cos(o.refresh_rot_deg * math.pi / 180.0)
@@ -259,6 +284,104 @@ def _solve_stage(M_R, M_t, query, target, search_fn, fit_fn, eval_fn, dof_mask, 
     return (*se3.compose(M_R, M_t, dR_c, dt_c), useful)
 
 
+_KINDS = ("surf", "corner")  # the trip kernel's `kind`
+_FIT = 8  # floats a query point in the trip kernel's fit cache
+_STATE = 48  # floats of a stage's state: R, t, R_ref, t_ref, the warm start, the result
+_OUT_R, _OUT_T = slice(36, 45), slice(45, 48)
+
+
+def _odo_params(kind, cfg):
+    """The stage's settings, in the order of the trip kernel's `Params`
+    (`csrc/odo.cu`), as float32 on the host: each launch copies them."""
+    o = cfg.odometry
+    corner = kind == "corner"
+    slope = o.weight_slope_corner if corner else o.weight_slope_surf
+    vals = (
+        (o.corner_nn_max_dist if corner else o.surf_nn_max_dist) ** 2, o.corner_line_ratio, o.surf_plane_tol,
+        o.surf_normal_min_z, slope, slope * 2.5, o.weight_min, o.eigen_threshold, o.step_scale,
+        o.step_clamp_rot_deg * math.pi / 180.0, o.step_clamp_trans, o.rot_converge_deg, o.trans_converge_cm,
+        1.0 + 2.0 * math.cos(o.refresh_rot_deg * math.pi / 180.0), o.refresh_trans_m,
+        o.stage_cap_rot_deg * math.pi / 180.0, o.stage_cap_trans, o.min_correspondences,
+    )
+    return (ctypes.c_float * len(vals))(*vals)
+
+
+class _OdoStage:
+    """One stage's buffers and launches on the card (`csrc/odo.cu`). The
+    constructor checks the inputs and launches the prologue; `trip` launches
+    one trip on K2's lists; `end` the epilogue, returning (R, t, useful
+    trips). Launches count as `odo_trip` (one a trip) and `odo_stage`
+    (prologue and epilogue) at the site `odometry_<kind>`."""
+
+    def __init__(self, M_R, M_t, query: FeatureCloud, target: FeatureCloud, kind, dof_mask, cfg):
+        dev = query.xyz.device
+        Q, T = query.xyz.shape[0], target.xyz.shape[0]
+        self.dof_bits = sum(1 << i for i, on in enumerate(dof_mask) if on)
+        if bin(self.dof_bits).count("1") not in (3, 6):
+            raise ValueError(f"the trip kernel solves 3 or 6 DOFs, got the mask {tuple(dof_mask)}")
+        if kind not in _KINDS:
+            raise ValueError(f"unknown odometry stage {kind!r}")
+        if T == 0:
+            raise ValueError("the stage's target cloud is empty")
+        M_R, M_t, self.xyz, self.rel, self.mask, self.txyz, self.tmask = (x.contiguous() for x in (
+            M_R, M_t, query.xyz, query.rel_time, query.mask, target.xyz, target.mask))
+        for name, x, dtype, shape in (
+            ("M_R", M_R, torch.float32, (3, 3)), ("M_t", M_t, torch.float32, (3,)),
+            ("query.xyz", self.xyz, torch.float32, (Q, 3)), ("query.rel_time", self.rel, torch.float32, (Q,)),
+            ("query.mask", self.mask, torch.bool, (Q,)), ("target.xyz", self.txyz, torch.float32, (T, 3)),
+            ("target.mask", self.tmask, torch.bool, (T,)),
+        ):
+            cuda.require(x, name, dtype, dev, shape)
+        self.Q, self.kind, self.site = Q, _KINDS.index(kind), f"odometry_{kind}"
+        self.st = torch.empty(_STATE, dtype=torch.float32, device=dev)
+        self.flags = torch.empty(3, dtype=torch.int32, device=dev)  # need, done, useful trips
+        self.qw = torch.empty((Q, 3), dtype=torch.float32, device=dev)  # the query at the current pose
+        self.fit = torch.empty((Q, _FIT), dtype=torch.float32, device=dev)
+        self.prm = _odo_params(kind, cfg)
+        self.stream = cuda.stream_ptr(dev)
+        self.lib = cuda.library("odo")
+        err = self.lib.odo_begin_launch(M_R.data_ptr(), M_t.data_ptr(), self.xyz.data_ptr(), self.rel.data_ptr(), Q,
+                                        self.st.data_ptr(), self.flags.data_ptr(), self.qw.data_ptr(), self.stream)
+        cuda.check(err, "odo_begin launch")
+        cuda.count("odo_stage", self.site)
+
+    def trip(self, idx, d5):
+        """One trip on K2's lists of the current warped query `qw` (read
+        only where the device flag `need` is set)."""
+        cuda.require(idx, "idx", torch.int32, self.qw.device, (self.Q, 5))
+        cuda.require(d5, "d5", torch.float32, self.qw.device, (self.Q, 5))
+        err = self.lib.odo_trip_launch(
+            self.kind, self.dof_bits, self.prm, self.xyz.data_ptr(), self.rel.data_ptr(), self.mask.data_ptr(),
+            self.Q, self.txyz.data_ptr(), idx.data_ptr(), d5.data_ptr(), self.fit.data_ptr(), self.st.data_ptr(),
+            self.flags.data_ptr(), self.qw.data_ptr(), self.stream,
+        )
+        cuda.check(err, "odo_trip launch")
+        cuda.count("odo_trip", self.site)
+
+    def end(self):
+        cuda.check(self.lib.odo_end_launch(self.prm, self.st.data_ptr(), self.stream), "odo_end launch")
+        cuda.count("odo_stage", self.site)
+        return self.st[_OUT_R].view(3, 3), self.st[_OUT_T], self.flags[2]
+
+
+def _solve_stage_cuda(M_R, M_t, query, target, kind, dof_mask, cfg, sync_free):
+    """`_solve_stage` on the card: the prologue, per trip K2 and one trip
+    kernel, the epilogue. sync_free runs every trip, with K2 in each;
+    otherwise the flags `need` and `done` are read back after each trip, K2
+    runs only where `need`, and the loop ends once `done`."""
+    stage = _OdoStage(M_R, M_t, query, target, kind, dof_mask, cfg)
+    need = True
+    for _ in range(cfg.odometry.max_iterations):
+        if sync_free or need:
+            idx, d5 = top5_l2(stage.qw, stage.txyz, stage.tmask, groups=1, site=stage.site)
+        stage.trip(idx, d5)
+        if not sync_free:
+            need, done = stage.flags[:2].tolist()
+            if done:
+                break
+    return stage.end()
+
+
 SURF_DOFS = (True, True, False, False, False, True)  # roll, pitch, tz
 CORNER_DOFS = (False, False, True, True, True, False)  # yaw, tx, ty
 FULL_DOFS = (True,) * 6
@@ -273,14 +396,10 @@ def two_step_odometry(
     o = cfg.odometry
     surf_dofs = FULL_DOFS if o.full_dof_odometry else SURF_DOFS
     corner_dofs = FULL_DOFS if o.full_dof_odometry else CORNER_DOFS
-    R, t, trips_surf = _solve_stage(
-        M_R_init, M_t_init, features.surf_flat, last_surf,
-        surf_search5, surf_fit5, surf_eval5, surf_dofs, cfg, sync_free,
-    )
-    R, t, trips_corner = _solve_stage(
-        R, t, features.corner_sharp, last_corner,
-        corner_search5, corner_fit5, corner_eval5, corner_dofs, cfg, sync_free,
-    )
+    R, t, trips_surf = _solve_stage(M_R_init, M_t_init, features.surf_flat, last_surf, "surf", surf_dofs, cfg,
+                                    sync_free)
+    R, t, trips_corner = _solve_stage(R, t, features.corner_sharp, last_corner, "corner", corner_dofs, cfg,
+                                      sync_free)
     if o.accel_cap > 0:
         # Keep |t| within accel_cap of the warm start's speed, except on a
         # cold start (an exactly zero warm start).
