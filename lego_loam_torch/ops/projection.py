@@ -1,8 +1,9 @@
 """Range-image projection: unordered cloud -> (H, W) polar grid.
 
 Port of `lego_loam_tpu/ops/projection.py`. The default feed is the range
-image: the host packs each scan (`host_pack_range_image`, numpy) and the
-device reconstructs xyz analytically (`grid_from_range_image`).
+image: the host packs the scans (`host_pack_range_images`, numpy, several
+in one pass) and the device reconstructs xyz analytically
+(`grid_from_range_image`).
 `project_point_cloud` is the points feed, one scatter over the padded cloud.
 """
 
@@ -85,17 +86,58 @@ def project_point_cloud(points, mask, cfg: LegoLoamConfig) -> ScanGrid:
     )
 
 
-def host_pack_range_image(points, cfg: LegoLoamConfig):
-    """numpy: (N, 3) raw cloud -> (rimg uint16 (H,W), az_resid int8 (H,W),
-    elev_resid int8 (H,W), row_elev float32 (H,)). Same row/col formulas and
-    min-range tie-break as project_point_cloud; NaN rows = misses. The int8
-    residual planes recover each point's azimuth and elevation against the
-    bin centres."""
+def nearest_per_pixel(flat, rng, ok, n_pix=None):
+    """Indices of the winning points, one per hit pixel: the nearest valid
+    point (`ok`; its pixel `flat`, its float32 range `rng` above 0.1), ties
+    to the lowest index; fewer than 2**32 points and pixels (n_pix, the
+    twin's sentinel, is not needed). Two sorts of uint64 keys, which
+    release the interpreter lock (a scatter-min by `np.minimum.at` holds
+    it): the valid points by (range bits << 32 | index), a positive float's
+    bits ordering as its value; then their ranks in that order by (pixel <<
+    32 | rank), where the first key of each pixel names its winner."""
+    lo, hi = np.uint64(0xFFFFFFFF), np.uint64(32)
+    near = (rng[ok].view(np.uint32).astype(np.uint64) << hi) | np.flatnonzero(ok).astype(np.uint64)
+    near.sort()
+    near = (near & lo).astype(np.int64)  # the valid points' indices, nearest first
+    by_pix = (flat[near].astype(np.uint64) << hi) | np.arange(len(near), dtype=np.uint64)
+    by_pix.sort()
+    pix = by_pix >> hi
+    first = np.ones(len(pix), bool)
+    first[1:] = pix[1:] != pix[:-1]
+    return near[(by_pix[first] & lo).astype(np.int64)]
+
+
+def nearest_per_pixel_lexsort(flat, rng, ok, n_pix):
+    """The twin of `nearest_per_pixel`: one lexsort by (pixel, range), the
+    first of each hit pixel (winners in pixel order; `flat` is n_pix where
+    not ok)."""
+    order = np.lexsort((np.where(ok, rng, np.inf), flat))
+    f_s = flat[order]
+    first = np.concatenate([[True], f_s[1:] != f_s[:-1]]) & (f_s < n_pix)
+    return order[first]
+
+
+def host_pack_range_images(clouds, cfg: LegoLoamConfig, winners=nearest_per_pixel):
+    """numpy: K raw clouds ((N_k, 3), NaN rows = misses) -> (rimg uint16
+    (K,H,W), az_resid int8 (K,H,W), elev_resid int8 (K,H,W), row_elev
+    float32 (K,H)). Same row/col formulas and min-range tie-break as
+    project_point_cloud. The int8 residual planes recover each point's
+    azimuth and elevation against the bin centres. The K clouds go through
+    each array operation together (cloud k's pixels at k*H*W), so each gets
+    the planes it would get alone, bit for bit, in fewer and longer numpy
+    calls. `winners(flat, rng, ok, K * H * W)` picks each pixel's point
+    (`nearest_per_pixel_lexsort` is the twin that tests hold it against).
+    With use_vlp32c the row table is the cloud's own: one cloud a call."""
     laser = cfg.laser
     H, W = laser.num_vertical_scans, laser.num_horizontal_scans
+    K = len(clouds)
+    if laser.use_vlp32c and K != 1:
+        raise ValueError("VLP-32C rows come from each cloud's own elevations: pack one cloud a call")
     q = cfg.pipeline.feed_quant or 0.004
 
-    pts = np.asarray(points, np.float32)
+    parts = [np.asarray(p, np.float32) for p in clouds]
+    pts = parts[0] if K == 1 else np.concatenate(parts)
+    base = np.repeat(np.arange(K, dtype=np.int64) * (H * W), [len(p) for p in parts])
     x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
     with np.errstate(invalid="ignore"):
         rng = np.sqrt(x * x + y * y + z * z)
@@ -121,27 +163,31 @@ def host_pack_range_image(points, cfg: LegoLoamConfig):
     col = np.where(col >= W, col - W, col)
     ok = ok & (col >= 0) & (col < W)
 
-    flat = np.where(ok, row * W + col, H * W)
-    order = np.lexsort((np.where(ok, rng, np.inf), flat))
-    f_s = flat[order]
-    first = np.concatenate([[True], f_s[1:] != f_s[:-1]]) & (f_s < H * W)
-    win = order[first]
+    flat = np.where(ok, base + row * W + col, K * H * W)
+    win = winners(flat, rng, ok, K * H * W)
 
-    rimg = np.zeros((H * W,), np.uint16)
+    rimg = np.zeros((K * H * W,), np.uint16)
     rimg[flat[win]] = np.clip(np.rint(rng[win] / q), 1, 65535).astype(np.uint16)
     # azimuth residual vs the column-centre ray, in half-bin units
     az_c = (W // 2 - col[win]) * laser.ang_res_x + np.pi / 2.0
     resid = np.arctan2(np.sin(az[win] - az_c), np.cos(az[win] - az_c))
-    azr = np.zeros((H * W,), np.int8)
+    azr = np.zeros((K * H * W,), np.int8)
     azr[flat[win]] = np.clip(
         np.rint(resid / (laser.ang_res_x / 2.0) * 127.0), -127, 127
     ).astype(np.int8)
     # elevation residual vs the row-centre beam, in half-row-spacing units
     e_scale = (laser.vlp32c_row_quant if laser.use_vlp32c else laser.ang_res_y) / 2.0
     resid_e = elev[win] - row_elev[row[win]]
-    elr = np.zeros((H * W,), np.int8)
+    elr = np.zeros((K * H * W,), np.int8)
     elr[flat[win]] = np.clip(np.rint(resid_e / e_scale * 127.0), -127, 127).astype(np.int8)
-    return rimg.reshape(H, W), azr.reshape(H, W), elr.reshape(H, W), row_elev
+    return rimg.reshape(K, H, W), azr.reshape(K, H, W), elr.reshape(K, H, W), np.tile(row_elev, (K, 1))
+
+
+def host_pack_range_image(points, cfg: LegoLoamConfig, winners=nearest_per_pixel):
+    """numpy: (N, 3) raw cloud -> (rimg uint16 (H,W), az_resid int8 (H,W),
+    elev_resid int8 (H,W), row_elev float32 (H,)): `host_pack_range_images`
+    of the one cloud."""
+    return tuple(a[0] for a in host_pack_range_images([points], cfg, winners))
 
 
 def grid_from_range_image(rimg, az_resid, elev_resid, row_elev, cfg: LegoLoamConfig) -> ScanGrid:

@@ -64,6 +64,7 @@ packages take the anchor-segment solve.
 from __future__ import annotations
 
 import dataclasses
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -85,6 +86,7 @@ from .distributed import (
     shard_rows,
     sharded_pose_graph_solver,
 )
+from .feed import RANGE_FEED, PinnedUploader, pack_range_images
 from .frontend import deskew_outliers, frontend_solve, imu_attitude, init_odometry_state, segment_features
 from .fusion import fuse_pose
 from .graphs import StepGraphs
@@ -93,7 +95,7 @@ from .loopclosure import attempt_loop_closure, compute_loopinfo
 from .mapping import MapDiag
 from .math import se3
 from .ops.ground import apply_ground, ransac_scores
-from .ops.projection import grid_from_range_image, host_pack_range_image, project_point_cloud
+from .ops.projection import grid_from_range_image, project_point_cloud
 from .ops.segmentation import converged_labels
 from .posegraph import Factors, anchor_stride, graph_cost, reduced_solve
 from .types import OdometryState, ScanGrid, named_leaves
@@ -101,6 +103,11 @@ from .utils.profiling import span_mark
 
 
 LAYERS = ("front_end", "odometry", "mapping", "between_steps")
+
+
+def _wide(dt) -> np.dtype:
+    """The dtype an array goes up as: range codes (uint16) as int32."""
+    return np.dtype(np.int32) if dt == np.uint16 else np.dtype(dt)
 
 
 def layer_ms(prepass, chunk_len, front, maps) -> dict:
@@ -212,7 +219,8 @@ class LegoLoamPipeline:
                                      "odom_trips", "timed", "prepass_span", "chunk_len")}
         self._diags: list[MapDiag] = []
         # mapping_ms: per timed mapped frame, its map step's device time
-        self.diagnostics = {"mapping_ms": [], "iterations": [], "records": [], "layer_ms": {}, "odom_trips": []}
+        self.diagnostics = {"mapping_ms": [], "iterations": [], "records": [], "layer_ms": {}, "odom_trips": [],
+                            "stage_ms": {"pack": [], "upload": []}}
         # global map, every global_map_every_n_frames mapped frames
         self.latest_global_map = None
         self.global_map_count = 0
@@ -222,6 +230,8 @@ class LegoLoamPipeline:
         self.odom_positions = self.fused_positions = None
         self._finalized = False
         self._stager = None  # one worker thread staging the next chunk (run_chunked)
+        # on the card, chunks go up through pinned buffers on a side stream
+        self._uploader = PinnedUploader(self.device) if on_card else None
 
         # Loop closure. loop_factors is the host mirror of the accepted
         # factors; _loop_buf the fixed-capacity device buffer (ABSOLUTE
@@ -260,24 +270,29 @@ class LegoLoamPipeline:
             buf[c, :k] = np.nan_to_num(points[:k])
         return {"pts": buf, "mask": m}
 
-    def _prep_many(self, scans):
+    def _range_feed(self) -> bool:
+        return self.cfg.pipeline.feed_mode == "range" and self.cfg.pipeline.feed_quant > 0
+
+    def _range_spec(self, C: int, rimg_dtype=np.uint16) -> tuple:
+        """(name, shape, dtype) of a C-scan range-image feed."""
+        H, W = self.cfg.laser.num_vertical_scans, self.cfg.laser.num_horizontal_scans
+        return tuple(zip(RANGE_FEED, ((C, H, W), (C, H, W), (C, H, W), (C, H)),
+                         map(np.dtype, (rimg_dtype, np.int8, np.int8, np.float32))))
+
+    def _prep_many(self, scans, out=None):
         """Pack raw clouds ((N, 3), NaN rows = misses) into the chunk feed.
 
         feed_mode "range" (with feed_quant > 0): per scan a (H, W) range
         image with int8 azimuth/elevation residuals and per-row beam
-        elevations. Otherwise: (C, max_points, 3) points (int16 at feed_quant,
-        or float32) with a mask, projected on the device."""
+        elevations, packed on the pool of `feed.pack_range_images` into
+        `out`'s arrays where given (rimg uint16 otherwise). Otherwise:
+        (C, max_points, 3) points (int16 at feed_quant, or float32) with a
+        mask, projected on the device."""
         cfg = self.cfg
-        C = len(scans)
-        if cfg.pipeline.feed_mode == "range" and cfg.pipeline.feed_quant > 0:
-            H, W = cfg.laser.num_vertical_scans, cfg.laser.num_horizontal_scans
-            rimg = np.zeros((C, H, W), np.uint16)
-            azr = np.zeros((C, H, W), np.int8)
-            elr = np.zeros((C, H, W), np.int8)
-            rowe = np.zeros((C, H), np.float32)
-            for c, points in enumerate(scans):
-                rimg[c], azr[c], elr[c], rowe[c] = host_pack_range_image(points, cfg)
-            return {"rimg": rimg, "azr": azr, "elr": elr, "rowe": rowe}
+        if self._range_feed():
+            if out is None:
+                out = {k: np.zeros(shape, dt) for k, shape, dt in self._range_spec(len(scans))}
+            return pack_range_images(scans, cfg, out)
         feed = self._pack_points(scans)
         q = cfg.pipeline.feed_quant
         if q > 0:
@@ -294,38 +309,63 @@ class LegoLoamPipeline:
         sample windows {"t": (C, S), "rpy": (C, S, 3), "acc": (C, S, 3),
         "mask": (C, S)} (S = imu_window; all masked when None); with the
         wheel-odometry prior, odom is ((C, 3, 3), (C, 3)) poses (identity
-        when None), kept on the host as well for `process_chunk`."""
+        when None), kept on the host as well for `process_chunk`.
+
+        On the card the arrays go up through pinned buffers (raw clouds are
+        packed straight into them) on the uploader's side stream; the call
+        returns once the copy is done, with the tensors held for the
+        caller's current stream. Per call, the host ms to the filled host
+        buffers and those of the upload go into diagnostics["stage_ms"]
+        ("pack", "upload")."""
+        t0 = time.perf_counter()
+        dev = self.device
         if isinstance(pts, dict):
             prep = pts
         elif masks is not None:
             prep = {"pts": pts, "mask": masks}
+        elif self._uploader is not None and self._range_feed():
+            prep = None  # packed below, straight into the pinned buffers
         else:
             prep = self._prep_many(pts)
-        dev = self.device
-        xs = {}
-        for k, v in prep.items():
-            v = np.asarray(v)
-            if v.dtype == np.uint16:
-                v = v.astype(np.int32)
-            xs[k] = torch.from_numpy(v).to(dev)
-        C = int(next(iter(xs.values())).shape[0])
+        raw = prep is None
+        C = len(pts) if raw else len(next(iter(prep.values())))
+        rest = {}
         if timestamps is not None:
-            xs["ts"] = torch.as_tensor(np.asarray(timestamps, np.float32), device=dev)
+            rest["ts"] = np.asarray(timestamps, np.float32)
         if self._use_imu:
             S = self.cfg.pipeline.imu_window
             if imu is None:
                 imu = {"t": np.zeros((C, S)), "rpy": np.zeros((C, S, 3)), "acc": np.zeros((C, S, 3)),
                        "mask": np.zeros((C, S), bool)}
-            xs["imu"] = {
-                k: torch.from_numpy(np.asarray(imu[k], bool if k == "mask" else np.float32)).to(dev)
-                for k in ("t", "rpy", "acc", "mask")
-            }
+            rest.update({f"imu.{k}": np.asarray(imu[k], bool if k == "mask" else np.float32)
+                         for k in ("t", "rpy", "acc", "mask")})
         if self._use_odom:
             if odom is None:
                 R, t = np.tile(np.eye(3, dtype=np.float32), (C, 1, 1)), np.zeros((C, 3), np.float32)
             else:
                 R, t = np.array(odom[0], np.float32), np.array(odom[1], np.float32)
-            xs["odom_R"], xs["odom_t"] = torch.from_numpy(R).to(dev), torch.from_numpy(t).to(dev)
+            rest["odom_R"], rest["odom_t"] = R, t
+        arrays = {} if raw else {k: np.asarray(v) for k, v in prep.items()}
+        arrays.update(rest)
+        if self._uploader is None:
+            t1 = time.perf_counter()
+            xs = {k: torch.from_numpy(v.astype(_wide(v.dtype), copy=False)).to(dev) for k, v in arrays.items()}
+        else:
+            spec = (self._range_spec(C, np.int32) if raw else ()) + tuple(
+                (k, v.shape, _wide(v.dtype)) for k, v in arrays.items())
+            with self._uploader.buffers(spec) as bufs:
+                if raw:
+                    self._prep_many(pts, out=bufs.arrays)
+                for k, v in arrays.items():
+                    np.copyto(bufs.arrays[k], v)
+                t1 = time.perf_counter()
+                xs = self._uploader.upload(bufs, torch.cuda.current_stream(dev))
+        stage = self.diagnostics["stage_ms"]
+        stage["pack"].append(1e3 * (t1 - t0))
+        stage["upload"].append(1e3 * (time.perf_counter() - t1))
+        if self._use_imu:
+            xs["imu"] = {k: xs.pop(f"imu.{k}") for k in ("t", "rpy", "acc", "mask")}
+        if self._use_odom:
             xs["odom_host"] = (R, t)
         return xs
 
@@ -438,6 +478,18 @@ class LegoLoamPipeline:
             return fn(x)
         return self._graphs.run(kind, key, fn, x, (self.fstate, self.bstate))
 
+    def _hold_feed(self, xs):
+        """Hold a staged feed's tensors for the current stream, which may be
+        another than the one they were staged for (`stage_chunk`): their
+        memory is then reused only after the work queued here has read them."""
+        if self._uploader is None:
+            return
+        stream = torch.cuda.current_stream(self.device)
+        for v in xs.values():
+            for t in v.values() if isinstance(v, dict) else (v,):
+                if isinstance(t, torch.Tensor):
+                    t.record_stream(stream)
+
     def _frames(self, xs, kf_ts, log_ts, odom_prev=None):
         """Run the staged scans of `xs` as frames frame_idx, frame_idx+1, ...
         (frame_idx itself is left to the caller). kf_ts: (C,) device tensor
@@ -452,6 +504,7 @@ class LegoLoamPipeline:
         C = int(xs["rimg" if "rimg" in xs else "pts"].shape[0])
         f0 = self.frame_idx
         self._finalized = False
+        self._hold_feed(xs)
 
         feed = ("rimg", "azr", "elr", "rowe") if "rimg" in xs else ("pts", "mask")
         x = {k: xs[k] for k in feed}

@@ -206,9 +206,10 @@ def _write_profile(out_dir, timer, n, dt, device, pipe=None):
     """profile.json: per-stage mean ms, scans/s and the CUDA kernels'
     launches (by kernel and by call site) of this run and, from a finalized
     pipeline, its frames' mean device time a scan per layer
-    (`device_ms_per_scan`, the steps' span marks) and useful odometry
+    (`device_ms_per_scan`, the steps' span marks), useful odometry
     trips a scan against the attempted 2 x max_iterations
-    (`odometry_trips`); written by rank 0."""
+    (`odometry_trips`) and the stager's mean packing and upload ms a
+    staged chunk (`stage_ms_per_chunk`); written by rank 0."""
     prof = {
         "scans": n, "seconds": dt, "scans_per_s": n / max(dt, 1e-9),
         "stages_mean_ms": {k: timer.mean_ms(k) for k in sorted(timer.totals)},
@@ -224,6 +225,11 @@ def _write_profile(out_dir, timer, n, dt, device, pipe=None):
         lines += [f"{'device ' + k:>24s}: {v:8.2f} ms/scan" for k, v in prof["device_ms_per_scan"].items()]
         lines.append(f"{'odometry trips':>24s}: {prof['odometry_trips']['useful_mean']:8.2f} useful of "
                      f"{prof['odometry_trips']['attempted']} a scan")
+    if pipe is not None and pipe.diagnostics["stage_ms"]["pack"]:
+        stage = pipe.diagnostics["stage_ms"]
+        prof["stage_ms_per_chunk"] = {k: float(np.mean(v)) for k, v in stage.items()}
+        prof["stage_ms_per_chunk"]["chunks"] = len(stage["pack"])
+        lines += [f"{'stage ' + k:>24s}: {float(np.mean(v)):8.2f} ms/chunk" for k, v in stage.items()]
     if is_writer():
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "profile.json"), "w") as f:
